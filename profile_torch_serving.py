@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Where the time goes when the PyTorch port serves deepseek-7b on the card.
+
+Usage (repository root, on a machine with an NVIDIA card)::
+
+    python3 profile_torch_serving.py [--out build/profile.txt]
+
+Builds the full deepseek-7b model (random weights from a seed) behind
+``ContinuousBatchingServer(n_slots=4, max_len=1024)`` with the timing
+tier of the server's telemetry on (no device barriers, no trace), and
+measures windows of real ``serve()`` calls:
+
+* ``prefill <rung>``: one 480-token prompt, ``max_new=1``;
+* ``admit4``: four 64-token prompts, two per rung, ``max_new=1``;
+* ``admit4+decode``: the same four with ``max_new=TICKS+1``; the
+  difference of the two is ``decode``, ``TICKS`` mixed decode ticks;
+* ``mixed``: the workload of ``chip_smoke.py`` (8 requests, prompt
+  lengths 17-480, 16 new tokens each, half per rung).
+
+Each window is served twice on the same prompts: once plain, for the
+host wall time and the server's ``tick_seconds`` / ``prefill_seconds``
+sums, and once under ``torch.profiler`` for the device's busy time (the
+summed times of the kernels and copies: one stream, so they do not
+overlap).  The idle share is ``1 - busy / plain wall``; the wall time of
+the profiled run, which tracing inflates, is printed beside it.  One JSON
+line per window; the profiler's per-kernel tables go to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+#: mirrors chip_smoke.py's mixed workload
+PROMPT_LENS = (17, 32, 64, 96, 150, 200, 300, 480)
+LEVELS = ("q16_16", "f32", "f32", "f32", "q16_16", "q16_16", "q16_16", "f32")
+MAX_NEW = 16
+#: decode ticks in the decode window
+TICKS = 16
+PHASES = ("host_schedule", "device_dispatch", "sync")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile.txt"))
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_serving: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime import ContinuousBatchingServer, Request, ServingConfig
+    from repro_torch.runtime.telemetry import TelemetryConfig
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    cfg = get_config("deepseek_7b")
+    scfg = ServingConfig(n_slots=4, max_len=1024,
+                         telemetry=TelemetryConfig(enabled=True, trace=False))
+    srv = ContinuousBatchingServer(cfg, init_params(cfg, seed=args.seed), scfg)
+    rng = np.random.default_rng(args.seed)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab, n).tolist()
+
+    # warm-up at both rungs
+    srv.serve([Request(rid=srv.next_rid(), prompt=prompt(8), max_new=2, level=lv)
+               for lv in ("q16_16", "f32")])
+    torch.cuda.synchronize()
+
+    def phase_sums():
+        snap = srv.metrics_snapshot()
+        ticks = snap.get("tick_seconds", {})
+        out = {p: ticks.get(f"phase={p}", {}).get("sum", 0.0) for p in PHASES}
+        out["prefill"] = snap.get("prefill_seconds", {}).get("", {}).get("sum", 0.0)
+        out["decode_ticks"] = snap["decode_ticks_total"]
+        return out
+
+    tables = []
+
+    def window(name, specs):
+        """Serve ``specs`` [(prompt, max_new, level)] plain, then under
+        the profiler; print and return the window's record."""
+        def requests():
+            return [Request(rid=srv.next_rid(), prompt=p, max_new=n, level=lv)
+                    for p, n, lv in specs]
+
+        before = phase_sums()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.serve(requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = phase_sums()
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            srv.serve(requests())
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in on_device)
+        top = sorted(on_device, key=lambda e: e.self_device_time_total, reverse=True)
+        rec = {
+            "window": name, "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "profiled_wall_ms": prof_wall * 1e3,
+            "device_ops": sum(e.count for e in on_device),
+            "decode_ticks": after["decode_ticks"] - before["decode_ticks"],
+            "host_ms": {k: (after[k] - before[k]) * 1e3 for k in PHASES + ("prefill",)},
+            "top": [{"name": e.key[:60], "device_ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in top[:8]],
+            "nvidia_smi": smi,
+        }
+        print(json.dumps(rec), flush=True)
+        tables.append(f"=== {name} (plain wall {wall * 1e3:.3f} ms) ===\n"
+                      + events.table(sort_by="self_cuda_time_total", row_limit=30))
+        return rec
+
+    for lv in ("q16_16", "f32"):
+        window(f"prefill 480 tokens at {lv}", [(prompt(480), 1, lv)])
+
+    four = [(prompt(64), lv) for lv in ("q16_16", "f32", "q16_16", "f32")]
+    admit = window("admit4: four 64-token prefills (2 q16_16 + 2 f32)",
+                   [(p, 1, lv) for p, lv in four])
+    full = window(f"admit4+decode: the same four, {TICKS} decode ticks",
+                  [(p, TICKS + 1, lv) for p, lv in four])
+    wall = full["wall_ms"] - admit["wall_ms"]
+    busy = full["device_busy_ms"] - admit["device_busy_ms"]
+    print(json.dumps({
+        "window": f"decode: {TICKS} mixed ticks, 4 lanes (admit4+decode - admit4)",
+        "ticks": full["decode_ticks"], "wall_ms": wall, "device_busy_ms": busy,
+        "device_idle_share": 1.0 - busy / wall,
+        "wall_ms_per_tick": wall / TICKS, "device_busy_ms_per_tick": busy / TICKS,
+        "host_ms_per_tick": {k: full["host_ms"][k] / TICKS for k in PHASES},
+        "device_ops_per_tick": (full["device_ops"] - admit["device_ops"]) / TICKS,
+        "nvidia_smi": smi,
+    }), flush=True)
+
+    mixed = [(prompt(n), MAX_NEW, lv) for n, lv in zip(PROMPT_LENS, LEVELS)]
+    window("mixed: chip_smoke.py's 8-request workload", mixed)
+
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write("\n\n".join(tables))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

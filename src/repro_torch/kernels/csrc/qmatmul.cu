@@ -1,0 +1,61 @@
+// K1: Q-format int8 matmul with ONE deferred power-of-two correction.
+//
+// Replaces src/repro/kernels/qmatmul/qmatmul.py::_kernel (launched by
+// qmatmul_kernel_call).  out[m, n] = epilogue(sum_k A[m,k] B[k,n],
+// e = ea + eb[n]) with the reference's three epilogues:
+//   0 float: acc * 2**e in f32 (exact power-of-two scale, one rounding
+//            in the int -> f32 conversion);
+//   1 q16:   Q16.16 shift by s = e + 16: left (wrapping, unsaturated)
+//            for s >= 0, round-half-up right shift otherwise, with the
+//            reference's shift-count semantics for |s| >= 32;
+//   2 int32: the raw accumulator.
+// Bound on the H100: bytes for decode (B is read once, 16.8 MB per
+// 4096x4096 projection, M <= 8 rows of work per byte), int8 operations
+// for prefill.  Design: dp4a on CUDA cores (see int8_gemm.cuh), with
+// the exponents read from device memory so no host sync is needed.
+// Tensor-core (wgmma s8) tiles are later work.
+#include "int8_gemm.cuh"
+
+namespace {
+
+struct QmmEpilogue {
+  const int32_t* ea;
+  const int32_t* eb;
+  void* out;
+  int N;
+  int mode;
+  __device__ __forceinline__ void operator()(int m, int n, int acc, int) const {
+    const int32_t e = rq::wadd(*ea, eb[n]);
+    const size_t idx = static_cast<size_t>(m) * N + n;
+    if (mode == 0) {
+      static_cast<float*>(out)[idx] = __fmul_rn(__int2float_rn(acc), rq::pow2f(e));
+    } else if (mode == 1) {
+      const int32_t s = rq::wadd(e, 16);
+      int32_t r;
+      if (s >= 0) {
+        r = rq::shl(acc, s);
+      } else {
+        const int32_t sr = rq::wneg(s);
+        const int32_t half = rq::shl(1, sr - 1);
+        r = rq::sar(rq::wadd(acc, half), sr);
+      }
+      static_cast<int32_t*>(out)[idx] = r;
+    } else {
+      static_cast<int32_t*>(out)[idx] = acc;
+    }
+  }
+};
+
+}  // namespace
+
+REPRO_DEFINE_ERROR_STRING
+
+// A (M,K) int8, B (K,N) int8, ea (1,) int32, eb (N,) int32 on the device;
+// out (M,N) f32 (mode 0) or int32.  K and N multiples of 4.
+REPRO_EXPORT int repro_qmatmul(const int8_t* A, const int8_t* B, const int32_t* ea,
+                               const int32_t* eb, void* out, int M, int N, int K, int mode,
+                               void* stream) {
+  rq::BMats<1> b{{B}};
+  QmmEpilogue epi{ea, eb, out, N, mode};
+  return rq::launch_int8_gemm<1>(A, b, M, N, K, epi, static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,128 @@
+"""K4: flash-attention forward (online softmax), f32 or bf16, GQA.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/flashattn/
+flashattn.py::_kernel`` (launched by ``flash_attention_call``); the CUDA
+source is ``kernels/csrc/flashattn.cu``.  It computes the function the
+serving path runs, ``src/repro/models/attention.py::chunked_attention``
+with keys from position 0 and ``q_positions = arange(S)``: q pre-scaled
+by ``D**-0.5`` and rounded to q's dtype, f32 scores, -1e30 masks, the
+running max / denominator / accumulator in f32 with ``p`` cast to v's
+dtype before P.V, and one normalisation by ``max(l, 1e-30)``.
+
+Padded keys are masked by ``k_pos < Skv``; the reference kernel's
+padding hazard (a non-causal call with ragged Skv turning causal,
+``flashattn.py:114-120``) is not copied.  GQA maps head ``h`` to kv head
+``h // (H // KV)``; K and V are never repeated.
+
+On the H100 prefill attention is bound by operations (2*S*Skv*D per
+head for each product, about half of it under the causal mask); this
+first kernel runs its products on CUDA cores — tensor-core tiles are
+later work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
+
+__all__ = ["NEG_INF", "flash_attention", "flash_attention_plain"]
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: repro_flash_attention(q, k, v, out, B, S, H, Skv, KV, D, Dv, scale,
+#:                       causal, window, dtype, stream)
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                          chunk: int = 1024):
+    """The plain PyTorch version: ``chunked_attention`` with keys from
+    position 0 and queries at ``arange(S)``.  q (B,S,H,Dq), k (B,Skv,KV,Dq),
+    v (B,Skv,KV,Dv) -> (B,S,H,Dv) in q's dtype."""
+    B, S, H, Dq = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KV
+    scale = 1.0 / math.sqrt(Dq)
+    if Skv >= 32768:
+        chunk = min(chunk, 128)
+    elif Skv >= 16384:
+        chunk = min(chunk, 512)
+    chunk = min(chunk, Skv)
+    n_chunks = -(-Skv // chunk)
+    pad = n_chunks * chunk - Skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qr = (q.to(torch.float32) * scale).to(q.dtype).reshape(B, S, KV, G, Dq).to(torch.float32)
+    qp = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, S, Dv), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        k_blk = k[:, c * chunk:(c + 1) * chunk].to(torch.float32)
+        v_blk = v[:, c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bskgd,bckd->bkgsc", qr, k_blk)
+        kp = c * chunk + torch.arange(chunk, device=q.device)[None, :]
+        valid = kp < Skv
+        if causal:
+            valid = valid & (kp <= qp)
+        if window is not None:
+            valid = valid & (kp > qp - window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgsc,bckd->bkgsd", p.to(v.dtype).to(torch.float32),
+                          v_blk.to(torch.float32))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dv).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B,S,H,D), k (B,Skv,KV,D), v (B,Skv,KV,Dv) -> (B,S,H,Dv) through K4."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash_attention: 4-D (B, S, heads, dim) operands required")
+    B, S, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    if k.shape != (B, Skv, KV, D) or v.shape[:3] != (B, Skv, KV) or H % KV:
+        raise ValueError(
+            f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: f32 or bf16 operands of one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention: operands on several devices")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    if D > 128 or Dv > 128:
+        raise ValueError(f"flash_attention: head dims up to 128 (D={D}, Dv={Dv})")
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
+    if B * S * H == 0:
+        return out
+    rc = kernel_function("flashattn", "repro_flash_attention", _ARGTYPES)(
+        ptr(q), ptr(k), ptr(v), ptr(out), B, S, H, Skv, KV, D, Dv, 1.0 / math.sqrt(D),
+        int(causal), int(window) if window else 0, _DTYPES[q.dtype], current_stream(q),
+    )
+    check_launch("flashattn", rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,5 @@
+"""K2: fused FAST SwiGLU (reference: ``src/repro/kernels/fused_mlp``)."""
+
+from repro_torch.kernels.fused_mlp.fused_mlp import fused_swiglu, fused_swiglu_plain, swiglu_body_q16
+
+__all__ = ["fused_swiglu", "fused_swiglu_plain", "swiglu_body_q16"]

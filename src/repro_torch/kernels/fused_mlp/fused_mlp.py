@@ -1,0 +1,121 @@
+"""K2: fused FAST SwiGLU hidden stage with ONE combined correction.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/fused_mlp/
+fused_mlp.py::_kernel`` (launched by ``fused_swiglu_kernel_call``); the
+CUDA source is ``kernels/csrc/fused_mlp.cu``, whose epilogue shares the
+CORDIC device functions of ``cordic.cuh`` with K3.
+
+One int8 ``x`` tile feeds two exact int32 accumulators (``x @ Wg`` and
+``x @ Wu``); the epilogue :func:`swiglu_body_q16` — saturating rounding
+shift of the gate into Q16.16, the CORDIC ``sigmoid_q16_body``, then
+``(acc_g * acc_u) * sig * 2**(e_g + e_u - 16)`` in f32 — runs in
+registers.  The down-projection stays unfused (one more K1 call).
+
+On the H100 the decode shapes are bound by reading Wg and Wu (bytes),
+prefill by int8 operations; the CORDIC epilogue costs a few hundred
+integer operations per output, far below either.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
+from repro_torch.core.cordic import sigmoid_q16_body
+from repro_torch.kernels.qmatmul.qmatmul import MAX_K, _acc_exact
+
+__all__ = ["swiglu_body_q16", "fused_swiglu", "fused_swiglu_plain"]
+
+_RAW_MAX = (1 << 31) - 1
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: repro_fused_swiglu(x, wg, wu, ea, eg, eu, out, gate, sig, M, F, K, stream)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
+
+
+def swiglu_body_q16(acc_g, acc_u, e_g, e_u, *, return_parts: bool = False):
+    """The fused epilogue's element contract (reference:
+    ``fused_mlp.swiglu_body_q16``), on int32 tensors."""
+    acc_g = acc_g.to(torch.int32)
+    acc_u = acc_u.to(torch.int32)
+    e_g = e_g.to(torch.int32)
+    e_u = e_u.to(torch.int32)
+    s = (e_g + 16).expand_as(acc_g)
+    sr = torch.clamp(-s, 0, 31)
+    sl = torch.clamp(s, 0, 31)
+    one = torch.ones_like(acc_g)
+    half = torch.where(sr > 0, one << torch.clamp_min(sr - 1, 0), torch.zeros_like(acc_g))
+    shifted_r = (acc_g + half) >> sr
+    lim = torch.full_like(acc_g, _RAW_MAX) >> sl
+    shifted_l = torch.where(
+        acc_g > lim,
+        torch.full_like(acc_g, _RAW_MAX),
+        torch.where(acc_g < -lim, torch.full_like(acc_g, -_RAW_MAX), acc_g << sl),
+    )
+    gate_q16 = torch.where(s >= 0, shifted_l, shifted_r)
+    sig = sigmoid_q16_body(gate_q16)
+    comb = torch.exp2((e_g + e_u - 16).to(torch.float32))
+    out = (acc_g.to(torch.float32) * acc_u.to(torch.float32)) * sig.to(torch.float32) * comb
+    if return_parts:
+        return out, gate_q16, sig
+    return out
+
+
+def fused_swiglu_plain(x_q, wg_q, wu_q, ea, eg, eu, *, return_parts: bool = False):
+    """The plain PyTorch version of K2 (any device)."""
+    acc_g = _acc_exact(x_q, wg_q).to(torch.int32)
+    acc_u = _acc_exact(x_q, wu_q).to(torch.int32)
+    ea = ea.to(torch.int32).reshape(())
+    e_g = ea + eg.to(torch.int32).reshape(-1)
+    e_u = ea + eu.to(torch.int32).reshape(-1)
+    return swiglu_body_q16(acc_g, acc_u, e_g, e_u, return_parts=return_parts)
+
+
+def fused_swiglu(x_q: torch.Tensor, wg_q: torch.Tensor, wu_q: torch.Tensor, ea: torch.Tensor,
+                 eg: torch.Tensor, eu: torch.Tensor, *, return_parts: bool = False):
+    """x_q (M, K) int8, wg_q/wu_q (K, F) int8, ea one int32, eg/eu (F,)
+    int32 -> (M, F) f32 ``silu(x@Wg) * (x@Wu)`` through K2 — or
+    ``(out, gate_q16, sig)`` with ``return_parts``."""
+    if x_q.dtype != torch.int8 or wg_q.dtype != torch.int8 or wu_q.dtype != torch.int8:
+        raise TypeError("fused_swiglu: int8 operands required")
+    if x_q.ndim != 2 or wg_q.ndim != 2 or wg_q.shape != wu_q.shape or x_q.shape[1] != wg_q.shape[0]:
+        raise ValueError(
+            f"fused_swiglu: shapes {tuple(x_q.shape)} x {tuple(wg_q.shape)} / {tuple(wu_q.shape)}")
+    M, K = x_q.shape
+    F = wg_q.shape[1]
+    if K > MAX_K:
+        raise ValueError(f"fused_swiglu: K={K} > 2**17, int32 accumulation would not be exact")
+    if ea.numel() != 1 or eg.numel() != F or eu.numel() != F:
+        raise ValueError("fused_swiglu: exponent shapes do not match F")
+    if len({t.device for t in (x_q, wg_q, wu_q, ea, eg, eu)}) != 1:
+        raise ValueError("fused_swiglu: operands on several devices")
+    if x_q.device.type == "cpu":
+        return fused_swiglu_plain(x_q, wg_q, wu_q, ea, eg, eu, return_parts=return_parts)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"fused_swiglu: unsupported device {x_q.device}")
+    for name, t in (("x_q", x_q), ("wg_q", wg_q), ("wu_q", wu_q), ("eg", eg), ("eu", eu)):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_swiglu: {name} must be contiguous")
+    if any(t.dtype != torch.int32 for t in (ea, eg, eu)):
+        raise TypeError("fused_swiglu: int32 exponents required")
+    if K % 4 or F % 4:
+        raise ValueError(f"fused_swiglu: the kernel needs K and F multiples of 4 (K={K}, F={F})")
+    dev = x_q.device
+    out = torch.empty((M, F), dtype=torch.float32, device=dev)
+    gate = sig = None
+    if return_parts:
+        gate = torch.empty((M, F), dtype=torch.int32, device=dev)
+        sig = torch.empty((M, F), dtype=torch.int32, device=dev)
+    if M and F:
+        ea1 = ea.reshape(1).contiguous()
+        rc = kernel_function("fused_mlp", "repro_fused_swiglu", _ARGTYPES)(
+            ptr(x_q), ptr(wg_q), ptr(wu_q), ptr(ea1), ptr(eg), ptr(eu),
+            ptr(out), ptr(gate), ptr(sig), M, F, K, current_stream(x_q),
+        )
+        check_launch("fused_mlp", rc, "fused_swiglu")
+        fused_swiglu.launches += 1
+    return (out, gate, sig) if return_parts else out
+
+
+fused_swiglu.launches = 0

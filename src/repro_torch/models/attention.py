@@ -1,0 +1,164 @@
+"""GQA attention for prefill and single-token decode.
+
+Reference: ``src/repro/models/attention.py`` — the GQA path only:
+``attn_specs``, ``init_attn_cache``, ``reset_attn_cache_slot``,
+``_prefill_cache`` and ``attention_forward`` for prefill and S == 1
+decode.  Prefill attention runs kernel K4 (``kernels.flashattn``, the
+function of ``chunked_attention``); ``decode_attention`` stays plain
+PyTorch, as the reference has no Pallas kernel for it.  MLA, the int8
+KV cache, segment decode (speculative verify) and score softcaps wait
+for later slices (ROADMAP.md queue 1 items 7, 9 and 10).
+
+Caches are updated IN PLACE (the reference returns new arrays): a
+prefill writes rows ``[0, S)`` of the cache it is given, a decode writes
+one row per lane.  With ``lane_mask`` a decode writes only member lanes
+and computes every non-member lane as the reference's pristine masked
+view would — that lane attends to its own fresh key alone, so its output
+is its fresh value row — without materialising a masked copy of the
+pool.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flashattn import NEG_INF, flash_attention
+from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.layers import Spec, apply_rope, attn_norm_spec, pdot, rms_norm, rope_tables
+
+__all__ = [
+    "attn_specs",
+    "attention_forward",
+    "decode_attention",
+    "init_attn_cache",
+    "reset_attn_cache_slot",
+]
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "norm": attn_norm_spec(d),
+        "wq": Spec((d, h * hd), ("embed", "heads")),
+        "wk": Spec((d, kv * hd), ("embed", "kv")),
+        "wv": Spec((d, kv * hd), ("embed", "kv")),
+        "wo": Spec((h * hd, d), ("heads", "embed")),
+    }
+
+
+def init_attn_cache(cfg: ModelConfig, layer: LayerSpec, batch: int, max_len: int,
+                    dtype=torch.float32, device="cpu") -> dict:
+    L = min(layer.window, max_len) if layer.window else max_len
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, L, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, L, kv, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
+    }
+
+
+def reset_attn_cache_slot(cache: dict, slot) -> dict:
+    """Pristine fill of one batch slot, in place: payloads 0, the
+    position sentinel -1 (so the next occupant cannot attend to the
+    evicted request's rows)."""
+    for k, v in cache.items():
+        v[slot] = -1 if k == "pos" else 0
+    return cache
+
+
+def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None):
+    """Single-token decode: q (B,1,H,D) vs cache (B,L,KV,D); kp (B,L)
+    slot positions (-1 = unwritten).  Plain PyTorch, f32 scores."""
+    B, _, H, Dq = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    # the reference multiplies by the scale in q's dtype (a weak-typed
+    # Python float becomes bf16 on the FAST rung); the product of two
+    # bf16 values is exact in f32, so one rounding to q's dtype follows
+    scale = torch.tensor(1.0 / math.sqrt(Dq), dtype=q.dtype).item()
+    qr = (q[:, 0] * scale).reshape(B, KV, G, Dq)
+    s = torch.einsum("bkgd,blkd->bkgl", qr.to(torch.float32), k_cache.to(torch.float32))
+    qp = q_position[:, None, None, None]
+    kpb = kp[:, None, None, :]
+    valid = (kpb >= 0) & (kpb <= qp)
+    if window is not None:
+        valid = valid & (kpb > qp - window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgl,blkd->bkgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, -1).to(q.dtype)
+
+
+def _prefill_cache(cache: dict, k, v, positions, window) -> dict:
+    """Write a prefill segment starting at position 0 into ``cache`` in
+    place: rows [0, S) for full attention; for a sliding window the
+    last ``L`` tokens, rolled so each lands at slot ``pos % L``."""
+    S = k.shape[1]
+    L = cache["k"].shape[1]
+
+    def place(buf, seg):
+        seg = seg.to(buf.dtype)
+        if window is None or L >= S:
+            buf[:, :S] = seg
+        else:
+            buf.copy_(torch.roll(seg[:, S - L:], S % L, dims=1))
+
+    place(cache["k"], k)
+    place(cache["v"], v)
+    place(cache["pos"], positions)
+    return cache
+
+
+def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: LayerSpec, *,
+                      positions: torch.Tensor, mode: str = "precise", cache=None,
+                      prefill: bool = False, lane_mask: Optional[torch.Tensor] = None):
+    """x (B,S,d) -> (out, cache).  ``cache=None``: no cache (positions
+    must be ``arange(S)``); ``prefill``: K4 attention + rows [0, S)
+    written; S == 1: decode against the cache."""
+    if cfg.attn_softcap is not None:
+        raise NotImplementedError("attention score softcap (gemma2): ROADMAP.md queue 1 item 7")
+    B, S, _ = x.shape
+    h = rms_norm(x, params["norm"], cfg.rms_eps)
+    q = pdot(h, params["wq"], mode, wq=params.get("wq_q")).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = pdot(h, params["wk"], mode, wq=params.get("wk_q")).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = pdot(h, params["wv"], mode, wq=params.get("wv_q")).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+
+    sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+
+    if cache is None or prefill:
+        out = flash_attention(q, k, v.contiguous(), causal=True, window=layer.window)
+        if prefill:
+            cache = _prefill_cache(cache, k, v, positions, layer.window)
+    elif S == 1:
+        if "k_exp" in cache:
+            raise NotImplementedError("int8 KV cache: ROADMAP.md queue 1 item 7")
+        L = cache["k"].shape[1]
+        slot = (positions[:, 0] % L).to(torch.long)
+        lanes = torch.arange(B, device=x.device)
+        for name, new in (("k", k[:, 0]), ("v", v[:, 0]), ("pos", positions[:, 0])):
+            buf = cache[name]
+            new = new.to(buf.dtype)
+            if lane_mask is not None:
+                # non-members keep their row (a select, not a boolean
+                # index: no device-to-host sync)
+                keep = lane_mask.to(torch.bool).reshape((B,) + (1,) * (new.ndim - 1))
+                new = torch.where(keep, new, buf[lanes, slot])
+            buf[lanes, slot] = new
+        out = decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                               q_position=positions[:, 0], window=layer.window)
+        if lane_mask is not None:
+            G = cfg.n_heads // cfg.n_kv_heads
+            own = v.repeat_interleave(G, dim=2).to(out.dtype)
+            out = torch.where(lane_mask.to(torch.bool)[:, None, None, None], out, own)
+    else:
+        raise NotImplementedError(
+            "segment decode (speculative verify / chunked prefill): ROADMAP.md queue 1 item 9")
+
+    out = pdot(out.reshape(B, S, cfg.n_heads * cfg.head_dim), params["wo"], mode,
+               wq=params.get("wo_q"))
+    return out, cache

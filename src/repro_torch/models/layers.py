@@ -1,0 +1,255 @@
+"""Shared layers: parameter specs, RMSNorm, SwiGLU MLP, rotary tables
+and the precision-dispatched matmul ``pdot``.
+
+Reference: ``src/repro/models/layers.py``.  The FAST (``q16_16``) rung
+runs on the port's kernels:
+
+* ``pdot`` FAST quantizes the activation ONCE per tensor (amax over the
+  whole batch — the coupling ``decode_step``'s ``lane_mask`` exists for)
+  and runs K1 (``kernels.qmatmul``) on the cached int8 weights;
+* ``rope_tables`` FAST is the exact Q0.64 phase plus K3
+  (``kernels.cordic.rope_sincos_q16``, both in one launch);
+* ``swiglu_mlp`` FAST on cached weights is K2 (``kernels.fused_mlp``)
+  followed by K1 for ``w_down``.
+
+Float casts sit where the reference has them: FAST ``pdot`` returns
+bf16, the fused hidden stage is cast to bf16 before the down
+projection.  The EXACT rung is float32 ``torch.matmul`` with TF32 off
+(``compat``).  Training-only pieces (the STE backward of the int8 dots,
+``ptanh``/``psigmoid``/``softcap`` on the FAST rung) wait for later
+slices: the FAST sigmoid outside K2 is kernel K5.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.qformat import Q16_16, from_fixed
+from repro_torch.core.quantization import quantize_pow2
+from repro_torch.kernels.cordic import rope_sincos_q16
+from repro_torch.kernels.fused_mlp import fused_swiglu
+from repro_torch.kernels.qmatmul import qmatmul
+
+__all__ = [
+    "Spec",
+    "init_from_specs",
+    "rms_norm",
+    "pdot",
+    "dot_fast_int8",
+    "FAST_MODES",
+    "is_fast_mode",
+    "snap_q8_8",
+    "rope_tables",
+    "apply_rope",
+    "swiglu_mlp",
+    "mlp_specs",
+    "attn_norm_spec",
+    "WEIGHT_KEYS",
+    "attach_quantized_weights",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """One parameter: shape, logical axes and init law."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"       # 'normal' | 'zeros' | 'ones' | 'uniform'
+    scale: Optional[float] = None  # default: 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+    def initializer(self, gen: torch.Generator, device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
+        scale = self.scale if self.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        if self.init == "uniform":
+            u = torch.rand(self.shape, generator=gen, dtype=self.dtype, device=device)
+            return u.mul_(2 * scale).sub_(scale)
+        return torch.randn(self.shape, generator=gen, dtype=self.dtype, device=device).mul_(scale)
+
+
+def init_from_specs(specs, gen: torch.Generator, device):
+    """Materialize a dict tree of Specs, drawing leaves in sorted-key
+    order from ``gen`` (a generator on ``device``)."""
+    if isinstance(specs, Spec):
+        return specs.initializer(gen, device)
+    return {k: init_from_specs(specs[k], gen, device) for k in sorted(specs)}
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+FAST_MODES = ("fast", "fast8")
+
+
+def is_fast_mode(mode: str) -> bool:
+    return mode in FAST_MODES
+
+
+def snap_q8_8(x: torch.Tensor) -> torch.Tensor:
+    """Round onto the Q8.8 grid (the q8_8 draft rung's activations)."""
+    xf = torch.clamp(torch.round(x.to(torch.float32) * 256.0), -32768.0, 32767.0)
+    return (xf * (1.0 / 256.0)).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with f32 accumulation (stays on the float path in FAST)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.to(torch.float32))).to(x.dtype)
+
+
+def _wq_parts(wq):
+    if isinstance(wq, dict):
+        return wq["q"], wq["exp"]
+    return wq.q, wq.exp
+
+
+def dot_fast_int8(x: torch.Tensor, w: torch.Tensor, wq=None) -> torch.Tensor:
+    """W8A8 matmul through K1: x quantized per tensor, weights per output
+    channel (pre-quantized ``wq`` when given), ONE deferred rescale.
+    Returns f32 of shape ``x.shape[:-1] + (N,)``."""
+    if wq is None:
+        q, e = _wq_parts(quantize_pow2(w, bits=8, axis=w.ndim - 1))
+    else:
+        q, e = _wq_parts(wq)
+    xq = quantize_pow2(x, bits=8, axis=None)
+    K, N = q.shape
+    out = qmatmul(xq.q.reshape(-1, K), q, xq.exp, e.reshape(-1), "float")
+    return out.reshape(*x.shape[:-1], N)
+
+
+def pdot(x: torch.Tensor, w: torch.Tensor, mode: str = "precise", wq=None) -> torch.Tensor:
+    """𝒟[matmul]: FAST -> K1 W8A8 (bf16 out); EXACT -> f32 matmul;
+    PRECISE -> bf16 matmul."""
+    if is_fast_mode(mode):
+        if mode == "fast8":
+            x = snap_q8_8(x)
+        return dot_fast_int8(x, w, wq=wq).to(torch.bfloat16)
+    dt = torch.float32 if mode == "exact" else torch.bfloat16
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, rope_dim: int, base: float = 10000.0,
+                mode: str = "precise"):
+    """(…) int positions -> (…, rope_dim//2) f32 sin/cos tables.
+
+    FAST: exact Q0.64 phase + 16-iteration CORDIC through K3.
+    Otherwise: f32 ``sin``/``cos`` of ``pos * inv_freq``."""
+    half = rope_dim // 2
+    if is_fast_mode(mode):
+        sin_q, cos_q = rope_sincos_q16(positions.to(torch.int32).contiguous(), rope_dim, base)
+        return from_fixed(sin_q, Q16_16), from_fixed(cos_q, Q16_16)
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    inv_freq = base ** (-2.0 * ar / rope_dim)
+    angle = positions[..., None].to(torch.float32) * inv_freq
+    return torch.sin(angle), torch.cos(angle)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x (…, S, H, D); sin/cos (…, S, D//2) broadcast over heads;
+    half-split (llama) convention, computed in f32, cast back."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    sin = sin[..., None, :]
+    cos = cos[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(d_model: int, d_ff: int) -> dict:
+    return {
+        "norm": Spec((d_model,), ("embed",), init="zeros"),
+        "w_gate": Spec((d_model, d_ff), ("embed", "mlp")),
+        "w_up": Spec((d_model, d_ff), ("embed", "mlp")),
+        "w_down": Spec((d_ff, d_model), ("mlp", "embed")),
+    }
+
+
+def attn_norm_spec(d_model: int) -> Spec:
+    return Spec((d_model,), ("embed",), init="zeros")
+
+
+def _fused_swiglu_fast(h: torch.Tensor, wgq, wuq) -> torch.Tensor:
+    """One activation quantization feeding K2 on the cached int8 gate
+    and up weights; f32 ``silu(h@Wg) * (h@Wu)``."""
+    gq, ge = _wq_parts(wgq)
+    uq, ue = _wq_parts(wuq)
+    xq = quantize_pow2(h, bits=8, axis=None)
+    K, F = gq.shape
+    out = fused_swiglu(xq.q.reshape(-1, K), gq, uq, xq.exp, ge.reshape(-1), ue.reshape(-1))
+    return out.reshape(*h.shape[:-1], F)
+
+
+def swiglu_mlp(params: dict, x: torch.Tensor, mode: str = "precise", eps: float = 1e-5):
+    """SwiGLU MLP with the per-op dispatch: FAST on cached weights is
+    K2 then K1; the float rungs are three matmuls and ``silu``."""
+    h = rms_norm(x, params["norm"], eps)
+    if is_fast_mode(mode):
+        if "w_gate_q" not in params:
+            raise NotImplementedError(
+                "FAST swiglu_mlp without cached int8 weights needs the CORDIC sigmoid "
+                "kernel K5 (ROADMAP.md queue 2); attach_quantized_weights first")
+        if mode == "fast8":
+            h = snap_q8_8(h)
+        act = _fused_swiglu_fast(h, params["w_gate_q"], params["w_up_q"]).to(torch.bfloat16)
+        return pdot(act, params["w_down"], mode, wq=params["w_down_q"])
+    gate = pdot(h, params["w_gate"], mode)
+    up = pdot(h, params["w_up"], mode)
+    act = torch.nn.functional.silu(gate.to(torch.float32)).to(up.dtype) * up
+    return pdot(act, params["w_down"], mode)
+
+
+# ---------------------------------------------------------------------------
+# quantize-once weight attachment (serving FAST path)
+# ---------------------------------------------------------------------------
+
+WEIGHT_KEYS = frozenset({
+    "w_gate", "w_up", "w_down",
+    "wq", "wk", "wv", "wo",
+    "wq_a", "wq_b", "wkv_a",
+    "wz", "wx", "wB", "wC", "wdt",
+})
+
+
+def attach_quantized_weights(params: dict, cache, *, level: str = "q16_16") -> dict:
+    """``params`` with ``<key>_q = {"q": int8, "exp": int32}`` next to
+    every :data:`WEIGHT_KEYS` matrix, quantized ONCE through ``cache``
+    with one exponent per everything-but-the-contraction axis (per
+    period and output channel for the stacked weights)."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            out = {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+            for k in sorted(WEIGHT_KEYS & node.keys()):
+                w = node[k]
+                if not isinstance(w, torch.Tensor) or w.ndim < 2:
+                    continue
+                axis = tuple(i for i in range(w.ndim) if i != w.ndim - 2)
+                qt = cache.get(f"{path}/{k}", w, level=level, axis=axis)
+                out[k + "_q"] = {"q": qt.q, "exp": qt.exp}
+            return out
+        return node
+
+    return walk(params, "")

@@ -23,3 +23,10 @@ settings.load_profile("repro")
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(42)  # the paper's seed
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (a CUDA kernel of the PyTorch port); skips without one",
+    )

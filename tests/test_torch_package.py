@@ -1,0 +1,115 @@
+"""Package rules of the PyTorch port: it imports neither ``jax`` nor the
+JAX package, its entry points default to the card and raise without
+one, ``chip_smoke.py`` refuses to run without a card or without the
+repository, and every kernel source the loader builds is present."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import compat  # noqa: E402
+from repro_torch.configs import ARCH_IDS, PORTED, get_config, smoke  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "profile_torch_serving.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "repro"), f"{path.name} imports {mod}"
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+
+
+def _entry_points():
+    from repro_torch import models
+    from repro_torch.convert import params_from_jax
+    from repro_torch.runtime import BatchedServer, ContinuousBatchingServer, ServingConfig
+
+    cfg = smoke("deepseek_7b")
+    return {
+        "resolve_device": lambda: compat.resolve_device(),
+        "init_params": lambda: models.init_params(cfg),
+        "init_caches": lambda: models.init_caches(cfg, 1, 8),
+        "params_from_jax": lambda: params_from_jax({"w": [1.0]}),
+        "ContinuousBatchingServer": lambda: ContinuousBatchingServer(cfg, {}, ServingConfig()),
+        "BatchedServer": lambda: BatchedServer(cfg, {}, ServingConfig()),
+    }
+
+
+@pytest.mark.parametrize("name", ["resolve_device", "init_params", "init_caches",
+                                  "params_from_jax", "ContinuousBatchingServer", "BatchedServer"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(name):
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_cpu_is_used_only_when_asked():
+    assert compat.resolve_device("cpu").type == "cpu"
+    assert compat.resolve_device(torch.device("cpu")).type == "cpu"
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("name", compat.KERNEL_SOURCES)
+def test_kernel_sources_present_and_build_dir_ignored(name):
+    assert (compat.CSRC_DIR / f"{name}.cu").is_file()
+    assert compat.BUILD_DIR.parent == ROOT / "build"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_only_ported_families_resolve():
+    assert get_config("deepseek_7b").d_model == 4096
+    for arch in ARCH_IDS:
+        if arch in PORTED:
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+            get_config(arch)
+
+
+def _run_chip_smoke(cwd: Path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    _no_card()
+    res = _run_chip_smoke(ROOT)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_refuses_outside_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_chip_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
