@@ -6,23 +6,43 @@ Usage (from the repository root, on a machine with the card)::
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --only kernels   # phases 1-2 only
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
-1. device: ``nvidia-smi`` name and power limit, and the time to build the
-   CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, all started together);
-2. kernels: K1 qmatmul, K2 fused SwiGLU, K3 CORDIC sincos and K4 flash
-   attention against their plain PyTorch versions on the card, at
-   deepseek-7b shapes — integer outputs bit-exact, float outputs within
-   the stated tolerance — with kernel, plain and library times and the
-   card's bound for the same work;
-3. serving: ``ContinuousBatchingServer`` at the full published
-   deepseek-7b width and depth (30 layers, random weights from a seed)
+1. device: ``nvidia-smi`` name, power limit and maximum SM clock, and the
+   time to build the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together);
+2. kernels: every kernel against its plain PyTorch version on the card —
+   K1 qmatmul, K2 fused SwiGLU, K3 CORDIC sincos and K4 flash attention
+   at deepseek-7b's and gemma2-2b's shapes (K1/K2 up to gemma2's
+   4500-token prefill; K4 at head width 256, score softcap 50, window
+   4096, 4500 tokens) with a case that fails unless p is rounded to v's
+   dtype, and K5-K7 (the universal CORDIC family) on
+   2**24 words plus an edge-value tensor — integer outputs bit-exact,
+   float outputs within the stated tolerance — with kernel, plain and
+   library times and the card's bound for the same work;
+3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid on
+   CUDA tensors of 2**24 elements at ``q16_16``, at ``f32`` and under
+   ``PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24"})``; the
+   fixed rungs must equal the plain bodies bit for bit and lie within the
+   reference's accuracy bounds (tests/test_universal_cordic.py,
+   tests/test_precision_ladder.py) from the exact value, and K5-K7 must
+   have run;
+4. deepseek-7b serving: ``ContinuousBatchingServer`` at the full
+   published width and depth (30 layers, random weights from a seed)
    answers 8 greedy requests, half at ``q16_16`` and half at ``f32``;
-   every request must return 16 tokens, every kernel's launch counter
-   must rise, logits must be finite, and the ``q16_16`` request that
-   shared its passes only with ``f32`` lanes must give, served alone,
-   the tokens it got in the mixed batch.
+   every request must return 16 tokens, K1-K4 must have run, logits
+   must be finite, and the ``q16_16`` request that shared its passes
+   only with ``f32`` lanes must give, served alone, its mixed-batch
+   tokens;
+5. gemma2-2b serving (after deepseek-7b's weights are freed): the full
+   published model (26 layers, local window 4096 / global, softcaps
+   50 / 30, tied embeddings) on an 8192-token pool answers the same 8
+   requests plus one 4500-token prompt per rung, which crosses the
+   window in prefill and wraps the local layers' rolling buffers while
+   decoding; every request returns 16 tokens, every logit is finite and
+   within the final softcap (|logit| <= 30), K5 runs once per ``q16_16``
+   pass, K4 once per layer of every prefill, and the isolation contract
+   holds.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -33,6 +53,7 @@ rest of the repository beside it, the script exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -46,15 +67,21 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 #: H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+#: integer ALU: 132 SMs x 64 INT32 lanes x the card's maximum SM clock
+#: (read from nvidia-smi in main; operations per second)
+N_SMS, INT32_LANES = 132, 64
+DEVICE = "cuda"
+#: words per K5-K7 check and per engine op
+N_WORDS = 1 << 24
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -93,26 +120,98 @@ def require(cond: bool, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# integer operations per element of the CORDIC kernels (the ops bound)
+# ---------------------------------------------------------------------------
+# Counted from the bodies (src/repro_torch/kernels/csrc/cordic.cuh) as ALU
+# instructions: a CORDIC step is 2 shifts, 3 adds and 1 compare; the MSB
+# cascade 5 x (compare, add, shift); a signed or rounding shift 4; the
+# linear-vectoring divide normalises (cascade + 2 shifts) and runs 5 ops
+# per step.  Branches the data takes decide the count (an element on an
+# early-exit path costs its few tests), as this run's inputs need.
+
+STEP, ILOG2, SHIFT = 6, 15, 4
+
+
+def _lindiv(iterations: int = 17) -> int:
+    return ILOG2 + 2 * SHIFT + 5 * iterations
+
+
+def _exp(stages: int) -> int:
+    return 16 + STEP * stages
+
+
+def unary_ops(op: str, w, stages: int) -> float:
+    import torch
+
+    n = w.numel()
+    if op == "exp":
+        live = int(((w > -772244) & (w < 681391)).sum())
+        return 2.0 * n + live * _exp(stages)
+    if op in ("sqrt", "log"):
+        live = int((w > 0).sum())
+        return 2.0 * n + live * (10 + ILOG2 + 2 * SHIFT + STEP * stages)
+    t = torch.clamp_min(w, -(2**31) + 1)
+    if op == "sigmoid":
+        t = t >> 1
+    at = t.abs()
+    near = int((at <= 65536).sum())
+    far_live = int(((at > 65536) & (at < 386122)).sum())
+    far_early = n - near - far_live
+    ops = (near * (10 + STEP * stages + _lindiv()) + far_live * (12 + _exp(stages) + _lindiv())
+           + far_early * (14 + _lindiv()))
+    return float(ops + (3 * n if op == "sigmoid" else 0))
+
+
+def atan2_ops(y, x, iterations: int) -> float:
+    zero = int(((y == 0) & (x == 0)).sum())
+    return 4.0 * zero + (y.numel() - zero) * (16 + ILOG2 + 2 * SHIFT + STEP * iterations)
+
+
+def div_ops(num, den, iterations: int) -> float:
+    zero = int((den == 0).sum())
+    return 3.0 * zero + (num.numel() - zero) * (20 + 2 * ILOG2 + 3 * SHIFT + _lindiv(iterations))
+
+
+#: K3 per element: the fused RoPE phase (~12), the range reduction (~8),
+#: 16 CORDIC steps and the sign flips
+K3_OPS = 12 + 8 + 16 * STEP + 2
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
 def check_kernels(gen):
-    """Returns {kernel name: record} with the slowest-shape numbers of
-    each kernel; raises Failure on any disagreement."""
+    """Returns {kernel name: record} with the record of each kernel's
+    main-path shape with the most work (K5: tanh, the op serving runs);
+    raises Failure on any disagreement."""
     import torch
 
+    from repro_torch.core.qformat import Q16_16, from_fixed
     from repro_torch.kernels.cordic import (
+        UNARY_OPS,
+        atan2_q16,
+        atan2_q16_plain,
         cordic_sincos,
         cordic_sincos_plain,
+        div_q16,
+        div_q16_plain,
         rope_sincos_plain,
         rope_sincos_q16,
+        universal_unary,
+        universal_unary_plain,
     )
-    from repro_torch.kernels.flashattn import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flashattn import (
+        bf16_close,
+        flash_attention,
+        flash_attention_plain,
+        p_rounding_case,
+    )
     from repro_torch.kernels.fused_mlp import fused_swiglu, fused_swiglu_plain
     from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     records = {}
 
     def keep(name, rec):
@@ -127,8 +226,15 @@ def check_kernels(gen):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32, device="cpu").to(dev)
 
     # K1 -------------------------------------------------------------------
+    # deepseek-7b (K, N): wq/wk/wv/wo, w_down; gemma2-2b: wq, wk/wv, wo,
+    # w_down — at decode (M=1, 4), prefill (512) and gemma2's 4500-token
+    # prefill; the model runs the float epilogue, q16 and int32 once each
     k1_cases = [(m, k, n, "float") for m in (1, 4, 512) for (k, n) in ((4096, 4096), (11008, 4096))]
     k1_cases += [(4, 4096, 4096, "q16"), (512, 4096, 4096, "int32")]
+    k1_cases += [(m, k, n, "float") for m in (1, 4, 512, LONG_PROMPT)
+                 for (k, n) in ((2304, 2048), (2304, 1024), (2048, 2304), (9216, 2304))]
+    k1_cases += [(m, k, n, epi) for (m, k, n) in ((4, 2304, 2048), (LONG_PROMPT, 9216, 2304))
+                 for epi in ("q16", "int32")]
     for m, k, n, epi in k1_cases:
         a, b = i8(m, k), i8(k, n)
         ea = i32(-12, -4, 1)
@@ -151,8 +257,10 @@ def check_kernels(gen):
             keep("qmatmul", rec)
 
     # K2 -------------------------------------------------------------------
-    for m in (1, 512):
-        k, f = 4096, 11008
+    # deepseek-7b (K=4096, F=11008) and gemma2-2b (K=2304, F=9216)
+    k2_cases = [(m, 4096, 11008) for m in (1, 512)]
+    k2_cases += [(m, 2304, 9216) for m in (1, 4, 512, LONG_PROMPT)]
+    for m, k, f in k2_cases:
         x, wg, wu = i8(m, k), i8(k, f), i8(k, f)
         ea, eg, eu = i32(-8, -4, 1), i32(-12, -6, f), i32(-12, -6, f)
         out, gate, sig = fused_swiglu(x, wg, wu, ea, eg, eu, return_parts=True)
@@ -175,102 +283,368 @@ def check_kernels(gen):
         keep("fused_swiglu", rec)
 
     # K3 -------------------------------------------------------------------
-    pos = torch.arange(1024, dtype=torch.int32, device=dev)
-    s_got, c_got = rope_sincos_q16(pos, 128)
-    s_want, c_want = rope_sincos_plain(pos, 128)
+    # deepseek-7b RoPE (128 wide: 64 frequencies) and gemma2-2b's (256: 128)
     edges = torch.tensor([0, 1, -1, 2**31 - 1, -2**31, 2**31 - 205887, -2**31 + 205887,
                           102944, -102944, 205887, -205887, 411775, -411775, 2**30, -2**30],
                          dtype=torch.int32, device=dev)
-    rnd = i32(-2**31, 2**31 - 1, 1 << 16)
-    theta = torch.cat([edges, rnd])
+    theta = torch.cat([edges, i32(-2**31, 2**31 - 1, 1 << 16)])
     es, ec = cordic_sincos(theta)
     ws, wc = cordic_sincos_plain(theta)
-    torch.cuda.synchronize()
-    exact = all(torch.equal(a, b) for a, b in ((s_got, s_want), (c_got, c_want), (es, ws), (ec, wc)))
-    rec = {"case": "1024 positions x 64 freqs + int32 edges", "bit_exact": exact,
-           "max_abs_err": max((a - b).abs().max().item()
-                              for a, b in ((s_got, s_want), (c_got, c_want), (es, ws), (ec, wc)))}
-    require(exact, "cordic_sincos differs from its plain version")
-    rec["ms"] = time_ms(lambda: rope_sincos_q16(pos, 128))
-    rec["plain_ms"] = time_ms(lambda: rope_sincos_plain(pos, 128), iters=5)
-    rec["library_ms"] = None
-    n = pos.numel() * 64
-    rec["bound_ms"], rec["bound_by"] = bound_ms(4 * pos.numel() + 8 * 64 + 8 * n, 0.0, "int8")
-    emit({"phase": "kernels", "kernel": "cordic_sincos", **rec})
-    keep("cordic_sincos", rec)
+    for n_pos, rope_dim in ((1024, 128), (4500, 256)):
+        pos = torch.arange(n_pos, dtype=torch.int32, device=dev)
+        s_got, c_got = rope_sincos_q16(pos, rope_dim)
+        s_want, c_want = rope_sincos_plain(pos, rope_dim)
+        torch.cuda.synchronize()
+        pairs = ((s_got, s_want), (c_got, c_want), (es, ws), (ec, wc))
+        exact = all(torch.equal(a, b) for a, b in pairs)
+        rec = {"case": f"{n_pos} positions x {rope_dim // 2} freqs + int32 edges",
+               "bit_exact": exact,
+               "max_abs_err": max((a - b).abs().max().item() for a, b in pairs)}
+        require(exact, "cordic_sincos differs from its plain version")
+        rec["ms"] = time_ms(lambda: rope_sincos_q16(pos, rope_dim))
+        rec["plain_ms"] = time_ms(lambda: rope_sincos_plain(pos, rope_dim), iters=5)
+        rec["library_ms"] = None
+        n = n_pos * rope_dim // 2
+        rec["bound_ms"], rec["bound_by"] = bound_ms(4 * n_pos + 4 * rope_dim + 8 * n,
+                                                    float(K3_OPS) * n, "int32")
+        emit({"phase": "kernels", "kernel": "cordic_sincos", **rec})
+        keep("cordic_sincos", rec)
 
     # K4 -------------------------------------------------------------------
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    k4_cases = [(s, dt, 32) for s in (17, 300, 1000) for dt in (torch.float32, torch.bfloat16)]
-    k4_cases += [(300, torch.bfloat16, 8)]
-    for s, dt, kv in k4_cases:
-        h, d = 32, 128
-        q = torch.randn(1, s, h, d, generator=gen).to(dev, dt)
-        k = torch.randn(1, s, kv, d, generator=gen).to(dev, dt)
+
+    def k4_case(s, h, kv, d, dt, window=None, cap=None, scale=1.0):
+        q = (scale * torch.randn(1, s, h, d, generator=gen)).to(dev, dt)
+        k = (scale * torch.randn(1, s, kv, d, generator=gen)).to(dev, dt)
         v = torch.randn(1, s, kv, d, generator=gen).to(dev, dt)
-        got = flash_attention(q, k, v, causal=True)
-        want = flash_attention_plain(q, k, v, causal=True)
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = flash_attention(q, k, v, **kw).float()
+        want = flash_attention_plain(q, k, v, **kw).float()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 2e-3 if dt == torch.float32 else 2e-2
+        err = (got - want).abs().max().item()
         name = "f32" if dt == torch.float32 else "bf16"
-        rec = {"case": f"B=1 S={s} H={h} KV={kv} D={d} {name} causal", "max_abs_err": err,
-               "tolerance": tol}
-        require(math.isfinite(err) and err <= tol,
-                f"flash_attention {rec['case']}: max err {err} > {tol}")
-        rec["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=True))
-        rec["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
+        rec = {"case": f"B=1 S={s} H={h} KV={kv} D={d} {name} causal window={window} "
+                       f"softcap={cap}", "max_abs_err": err}
+        if dt == torch.float32:
+            rec["tolerance"] = "abs 2e-3"
+            ok = math.isfinite(err) and err <= 2e-3
+        else:
+            rec["tolerance"] = "2**-6 * (|want| + row rms of want)"
+            ok = math.isfinite(err) and bf16_close(got, want)
+        require(ok, f"flash_attention {rec['case']}: max err {err} outside {rec['tolerance']}")
+        rec["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw))
+        rec["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if kv == h:
+        if cap is not None or window is not None:
+            rec["library_ms"] = None   # SDPA has no score softcap
+        elif kv == h:
             rec["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
         else:
             rec["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-        pairs = s * (s + 1) / 2
+        pairs = sum(min(i + 1, window or s) for i in range(s))
         esz = 4 if dt == torch.float32 else 2
         rec["bound_ms"], rec["bound_by"] = bound_ms(esz * (2 * s * h * d + 2 * s * kv * d),
                                                     4.0 * h * pairs * d,
                                                     "f32" if dt == torch.float32 else "bf16")
         emit({"phase": "kernels", "kernel": "flash_attention", **rec})
-        if dt == torch.bfloat16 and kv == h:
-            keep("flash_attention", rec)
+        keep("flash_attention", rec)
+
+    for s in (17, 300, 1000):
+        for dt in (torch.float32, torch.bfloat16):
+            k4_case(s, 32, 32, 128, dt)
+    k4_case(300, 32, 8, 128, torch.bfloat16)
+    # gemma2-2b prefill: 8 heads of 256 over 4 kv heads, scores capped at
+    # 50, the local layers' window of 4096 crossed by a 4500-token prompt
+    for window in (None, 4096):
+        for dt in (torch.float32, torch.bfloat16):
+            k4_case(4500, 8, 4, 256, dt, window=window, cap=50.0, scale=2.0)
+    # p must be rounded to v's dtype before P.V
+    q, k, v = p_rounding_case(dev)
+    got = flash_attention(q, k, v, causal=False).float()
+    want = flash_attention_plain(q, k, v, causal=False).float()
+    emit({"phase": "kernels", "kernel": "flash_attention", "case": "p rounded to bf16 before P.V",
+          "max_abs_err": (got - want).abs().max().item(), "want_mean": want.mean().item()})
+    require(bf16_close(got, want), "flash_attention: p is not rounded to v's dtype before P.V")
+
+    # K5-K7 ----------------------------------------------------------------
+    def words(seed):
+        g = torch.Generator().manual_seed(seed)
+        half = N_WORDS // 2
+        return torch.cat([
+            torch.randint(-(2**31), 2**31 - 1, (half,), generator=g, dtype=torch.int32),
+            torch.randint(-40 * 65536, 40 * 65536, (N_WORDS - half,), generator=g,
+                          dtype=torch.int32),
+        ]).to(dev)
+
+    edge_vals = [0, 1, -1, 2, -2, 3, 65535, 65536, 65537, -65536, 32768, 2**31 - 1, -(2**31),
+                 -(2**31) + 1, 2**31 - 2, 123456789, -123456789, 681391, -772244, 2**30, -(2**30)]
+    edge = torch.tensor(edge_vals + list(range(-40, 41)), dtype=torch.int32, device=dev)
+    ey, ex = (t.reshape(-1).contiguous() for t in torch.meshgrid(edge, edge, indexing="ij"))
+
+    w = words(5)
+    wf = from_fixed(w, Q16_16)
+    for op in sorted(UNARY_OPS):
+        for stages in (20, 13):
+            got, want = universal_unary(w, op, stages), universal_unary_plain(w, op, stages)
+            g_e, w_e = universal_unary(edge, op, stages), universal_unary_plain(edge, op, stages)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, want) and torch.equal(g_e, w_e)
+            rec = {"case": f"{op} stages={stages} 2**24 words + {edge.numel()} edges",
+                   "bit_exact": exact, "max_abs_err": (got.double() - want.double()).abs().max().item()}
+            require(exact, f"universal_unary {rec['case']} differs from its plain version")
+            rec["ms"] = time_ms(lambda: universal_unary(w, op, stages))
+            rec["plain_ms"] = time_ms(lambda: universal_unary_plain(w, op, stages), iters=2, warmup=1)
+            fn = getattr(torch, op)
+            rec["library_ms"] = time_ms(lambda: fn(wf))
+            rec["library"] = f"torch.{op} on f32 (float analogue, not the same bits)"
+            rec["bound_ms"], rec["bound_by"] = bound_ms(8.0 * w.numel(),
+                                                        unary_ops(op, w, stages), "int32")
+            emit({"phase": "kernels", "kernel": "universal_unary", **rec})
+            if op == "tanh" and stages == 20:
+                records["universal_unary"] = rec
+
+    x = words(6)
+    y = torch.roll(x, 7)
+    xf, yf = from_fixed(x, Q16_16), from_fixed(y, Q16_16)
+    for fb in (16, 24):
+        got, want = atan2_q16(y, x, fb, fb), atan2_q16_plain(y, x, fb, fb)
+        g_e, w_e = atan2_q16(ey, ex, fb, fb), atan2_q16_plain(ey, ex, fb, fb)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want) and torch.equal(g_e, w_e)
+        rec = {"case": f"frac_bits={fb} iterations={fb} 2**24 pairs + {ey.numel()} edge pairs",
+               "bit_exact": exact, "max_abs_err": (got.double() - want.double()).abs().max().item()}
+        require(exact, f"atan2_q16 {rec['case']} differs from its plain version")
+        rec["ms"] = time_ms(lambda: atan2_q16(y, x, fb, fb))
+        rec["plain_ms"] = time_ms(lambda: atan2_q16_plain(y, x, fb, fb), iters=2, warmup=1)
+        rec["library_ms"] = time_ms(lambda: torch.atan2(yf, xf))
+        rec["library"] = "torch.atan2 on f32 (float analogue, not the same bits)"
+        rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * x.numel(), atan2_ops(y, x, fb), "int32")
+        emit({"phase": "kernels", "kernel": "atan2_q16", **rec})
+        keep("atan2_q16", rec)
+
+    got, want = div_q16(y, x), div_q16_plain(y, x)
+    g_e, w_e = div_q16(ey, ex), div_q16_plain(ey, ex)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want) and torch.equal(g_e, w_e)
+    rec = {"case": f"iterations=17 2**24 pairs + {ey.numel()} edge pairs (tiny and zero "
+                   "denominators)", "bit_exact": exact,
+           "max_abs_err": (got.double() - want.double()).abs().max().item()}
+    require(exact, f"div_q16 {rec['case']} differs from its plain version")
+    rec["ms"] = time_ms(lambda: div_q16(y, x))
+    rec["plain_ms"] = time_ms(lambda: div_q16_plain(y, x), iters=2, warmup=1)
+    rec["library_ms"] = time_ms(lambda: torch.div(yf, xf))
+    rec["library"] = "torch.div on f32 (float analogue, not the same bits)"
+    rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * x.numel(), div_ops(y, x, 17), "int32")
+    emit({"phase": "kernels", "kernel": "div_q16", **rec})
+    records["div_q16"] = rec
     return records
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serving at the full deepseek-7b config
+# launch counters
 # ---------------------------------------------------------------------------
 
-PROMPT_LENS = (17, 32, 64, 96, 150, 200, 300, 480)
-MAX_NEW = 16
+KERNELS = ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention", "universal_unary",
+           "atan2_q16", "div_q16")
+
+
+def _wrappers():
+    from repro_torch.kernels.cordic import (
+        atan2_q16,
+        cordic_sincos,
+        div_q16,
+        rope_sincos_q16,
+        universal_unary,
+    )
+    from repro_torch.kernels.flashattn import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_swiglu
+    from repro_torch.kernels.qmatmul import qmatmul
+
+    return {"qmatmul": (qmatmul,), "fused_swiglu": (fused_swiglu,),
+            "cordic_sincos": (cordic_sincos, rope_sincos_q16),
+            "flash_attention": (flash_attention,), "universal_unary": (universal_unary,),
+            "atan2_q16": (atan2_q16,), "div_q16": (div_q16,)}
 
 
 def _launch_counts():
-    from repro_torch.kernels.cordic import cordic_sincos, rope_sincos_q16
-    from repro_torch.kernels.flashattn import flash_attention
-    from repro_torch.kernels.fused_mlp import fused_swiglu
-    from repro_torch.kernels.qmatmul import qmatmul
-
-    return {
-        "qmatmul": qmatmul.launches,
-        "fused_swiglu": fused_swiglu.launches,
-        "cordic_sincos": cordic_sincos.launches + rope_sincos_q16.launches,
-        "flash_attention": flash_attention.launches,
-    }
+    return {name: sum(fn.launches for fn in fns) for name, fns in _wrappers().items()}
 
 
 def _reset_launch_counts():
-    from repro_torch.kernels.cordic import cordic_sincos, rope_sincos_q16
-    from repro_torch.kernels.flashattn import flash_attention
-    from repro_torch.kernels.fused_mlp import fused_swiglu
-    from repro_torch.kernels.qmatmul import qmatmul
-
-    for fn in (qmatmul, fused_swiglu, cordic_sincos, rope_sincos_q16, flash_attention):
-        fn.launches = 0
+    for fns in _wrappers().values():
+        for fn in fns:
+            fn.launches = 0
 
 
-def serve_phase(seed: int):
-    """Serve the mixed workload at the full deepseek-7b config; returns
-    each kernel's launches in it."""
+# ---------------------------------------------------------------------------
+# phase 3: the engine's transcendental ops on the card
+# ---------------------------------------------------------------------------
+
+#: op -> (input ranges, accuracy bound from the exact value) as the
+#: reference's tests state them (tests/test_universal_cordic.py,
+#: tests/test_precision_ladder.py)
+ENGINE_OPS = ("atan2", "div", "sqrt", "exp", "log", "tanh", "sigmoid")
+
+
+def engine_phase(seed: int):
+    """Every new engine op on CUDA tensors at q16_16, f32 and under a
+    per-op policy; returns the K5-K7 launches of the run."""
+    import torch
+
+    from repro_torch.core.cordic import ITER_Q24
+    from repro_torch.core.precision import MathEngine, PrecisionPolicy
+    from repro_torch.core.qformat import Q8_24, Q16_16, from_fixed, to_fixed
+    from repro_torch.kernels.cordic import atan2_q16_plain, div_q16_plain, universal_unary_plain
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+
+    def grid(lo, hi, n=N_WORDS):
+        # values on the Q16.16 grid, so every rung sees the same numbers
+        u = torch.rand(n, generator=g, device=dev, dtype=torch.float64) * (hi - lo) + lo
+        return (torch.round(u * 65536) / 65536).to(torch.float32)
+
+    half = N_WORDS // 2
+    inputs = {
+        "atan2": (grid(-200.0, 200.0), grid(-200.0, 200.0)),
+        "div": (torch.cat([grid(-30000.0, 30000.0, half), grid(-300.0, 300.0, half)]),
+                torch.cat([grid(-30000.0, 30000.0, half), grid(-0.05, 0.05, half)])),
+        "sqrt": (torch.cat([grid(2.0 ** -16, 1.0, half), grid(1.0, 32767.0, half)]),),
+        "exp": (grid(-11.5, 10.39),),
+        "log": (torch.cat([grid(2.0 ** -10, 1.0, half), grid(1.0, 32767.0, half)]),),
+        "tanh": (grid(-16.0, 16.0),),
+        "sigmoid": (grid(-20.0, 20.0),),
+    }
+    den = inputs["div"][1]
+    inputs["div"] = (inputs["div"][0], torch.where(den == 0, torch.full_like(den, 2.0 ** -16), den))
+
+    def plain(op, args):
+        q = [to_fixed(a, Q16_16) for a in args]
+        if op == "atan2":
+            out = atan2_q16_plain(*q)
+        elif op == "div":
+            out = div_q16_plain(*q)
+        else:
+            out = universal_unary_plain(q[0], op)
+        return from_fixed(out, Q16_16)
+
+    def bound(op, args, want):
+        """The reference's accuracy bound, elementwise, and the mask of
+        the elements it is stated for."""
+        a = want.abs()
+        if op == "atan2":
+            return torch.full_like(want, 1e-4), torch.ones_like(want, dtype=torch.bool)
+        if op == "div":
+            return 2.0 ** -15 * (1.0 + a), a < 32767
+        if op == "sqrt":
+            return 2.0 ** -16 + 3e-5 * a, torch.ones_like(want, dtype=torch.bool)
+        if op == "exp":
+            return 2.0 ** -16 + 6e-5 * a, args[0] < 681391 / 65536
+        tol = {"log": 8e-5, "tanh": 6e-5, "sigmoid": 5e-5}[op]
+        return torch.full_like(want, tol), torch.ones_like(want, dtype=torch.bool)
+
+    eng = MathEngine("q16_16")
+    _reset_launch_counts()
+    fixed = {op: eng.call(op, *args) for op, args in inputs.items()}
+    policy = PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24"})
+    with eng.at(policy):
+        pinned = {op: eng.call(op, *args) for op, args in inputs.items()}
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    with eng.at("f32"):
+        exact = {op: eng.call(op, *args) for op, args in inputs.items()}
+
+    out = {}
+    for op, args in inputs.items():
+        want_bits = plain(op, args)
+        exact64 = exact[op].double()
+        tol, mask = bound(op, args, exact64)
+        err = (fixed[op].double() - exact64).abs()
+        rec = {"bit_exact": torch.equal(fixed[op], want_bits),
+               "max_err_vs_f32": err[mask].max().item(),
+               "worst_err_over_bound": (err[mask] / tol[mask]).max().item(),
+               "ms": time_ms(lambda: eng.call(op, *args), iters=5, warmup=1)}
+        with eng.at("f32"):
+            rec["f32_ms"] = time_ms(lambda: eng.call(op, *args), iters=5, warmup=1)
+        require(rec["bit_exact"], f"engine {op} at q16_16 differs from the plain body")
+        require(rec["worst_err_over_bound"] <= 1.0,
+                f"engine {op} at q16_16 outside the reference's bound: {rec}")
+        if op != "atan2":
+            require(torch.equal(pinned[op], fixed[op]), f"engine {op} under the policy moved")
+        out[op] = rec
+
+    # the policy's atan2 is the Q8.24 rung: K6 with 24 iterations on
+    # operands normalised by max(|y|, |x|); held against float64 atan2
+    # at the reference's 1e-6 plus the Q8.24 rounding of the normalised
+    # operands (2 * 2**-25 / radius >= 1)
+    y, x = inputs["atan2"]
+    m = torch.maximum(y.abs(), x.abs())
+    s = torch.where(m > 0, m, torch.ones_like(m))
+    want24 = from_fixed(atan2_q16_plain(to_fixed(y / s, Q8_24), to_fixed(x / s, Q8_24),
+                                        ITER_Q24, 24), Q8_24)
+    err24 = (pinned["atan2"].double() - torch.atan2(y.double(), x.double())).abs().max().item()
+    out["atan2@q8_24"] = {"bit_exact": torch.equal(pinned["atan2"], want24),
+                          "max_err_vs_f64": err24}
+    require(out["atan2@q8_24"]["bit_exact"], "engine atan2 under the policy differs from q8_24")
+    require(err24 <= 1e-6 + 2.0 ** -24, f"engine atan2 at q8_24: error {err24} > 1e-6 + 2**-24")
+
+    emit({"phase": "engine", "elements": N_WORDS, "ops": out, "launches": launches,
+          "policy": repr(policy), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for name in ("universal_unary", "atan2_q16", "div_q16"):
+        require(launches[name] > 0, f"kernel {name} was not launched by the engine")
+    # 5 unary ops twice (q16_16, policy), atan2 and div twice each
+    require(launches["universal_unary"] == 10 and launches["atan2_q16"] == 2
+            and launches["div_q16"] == 2, f"engine launches {launches}")
+    return {k: launches[k] for k in ("universal_unary", "atan2_q16", "div_q16")}
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: serving at full size
+# ---------------------------------------------------------------------------
+
+PROMPT_LENS = (17, 32, 64, 96, 150, 200, 300, 480)
+LONG_PROMPT = 4500
+MAX_NEW = 16
+# FIFO over 4 slots: requests 0-3 run together, then 4-7 (then 8-9).
+# Request 0 is the only q16_16 lane of its wave, so the isolation contract
+# (lanes of OTHER levels cannot perturb it) applies to it; q16_16 lanes
+# sharing a pass share one per-tensor activation exponent by design
+# (reference serve.py docstring).
+LEVELS = ("q16_16", "f32", "f32", "f32", "q16_16", "q16_16", "q16_16", "f32")
+
+
+class _LogitWatch:
+    """Folds one device flag per sampling call into a list: all logits
+    finite and, with a cap, within it (no host sync inside the loop)."""
+
+    def __init__(self, serve_mod, cap=None):
+        import torch
+
+        self.mod, self.orig, self.flags = serve_mod, serve_mod._finish, []
+
+        def finish_checked(logits, temperature, gen):
+            ok = torch.isfinite(logits).all()
+            if cap is not None:
+                ok = ok & (logits.abs() <= cap).all()
+            self.flags.append(ok)
+            return self.orig(logits, temperature, gen)
+
+        serve_mod._finish = finish_checked
+
+    def ok(self) -> bool:
+        import torch
+
+        return bool(torch.stack(self.flags).all().item())
+
+    def close(self):
+        self.mod._finish = self.orig
+
+
+def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_lens):
+    """Serve the mixed workload at the full config of ``name``; returns
+    the phase record (launch counts of the mixed run included) after the
+    slice-1 checks common to every model."""
     import numpy as np
     import torch
 
@@ -279,46 +653,32 @@ def serve_phase(seed: int):
     from repro_torch.models import init_params
     from repro_torch.runtime import ContinuousBatchingServer, Request, ServingConfig
 
-    cfg = get_config("deepseek_7b")
-    dev = torch.device("cuda")
-    max_len = 1024
+    cfg = get_config(name)
+    dev = torch.device(DEVICE)
     sync = torch.cuda.synchronize
+    torch.cuda.reset_peak_memory_stats()
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device=dev)
     srv = ContinuousBatchingServer(cfg, params, ServingConfig(n_slots=4, max_len=max_len),
                                    device=dev)
+    del params
     sync()
     setup_s = time.perf_counter() - t0
 
-    # every sampled row's logits must be finite: fold one device flag per
-    # sampling call (no host sync inside the loop)
-    finite_flags = []
-    orig_finish = serve_mod._finish
-
-    def finish_checked(logits, temperature, gen):
-        finite_flags.append(torch.isfinite(logits).all())
-        return orig_finish(logits, temperature, gen)
-
-    serve_mod._finish = finish_checked
-
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in PROMPT_LENS]
-    # FIFO over 4 slots: requests 0-3 run together, then 4-7.  Request 0
-    # is the only q16_16 lane of its wave, so the isolation contract
-    # (lanes of OTHER levels cannot perturb it) applies to it; q16_16
-    # lanes sharing a pass share one per-tensor activation exponent by
-    # design (reference serve.py docstring).
-    levels = ["q16_16", "f32", "f32", "f32", "q16_16", "q16_16", "q16_16", "f32"]
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in prompt_lens]
 
     # warm-up: one short request per level (cuBLAS handles, allocator)
     srv.serve([Request(rid=srv.next_rid(), prompt=prompts[0][:8], max_new=2, level=lv)
                for lv in ("q16_16", "f32")])
     sync()
 
+    watch = _LogitWatch(serve_mod, cfg.final_softcap)
     reqs = [Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, level=lv)
             for p, lv in zip(prompts, levels)]
     stats0 = srv.stats
+    passes0 = srv.metrics_snapshot()["level_passes_total"].get("level=q16_16", 0)
     _reset_launch_counts()
     t0 = time.perf_counter()
     fins = srv.serve(reqs)
@@ -327,9 +687,9 @@ def serve_phase(seed: int):
     launches = _launch_counts()
     ticks = srv.stats["decode_steps"] - stats0["decode_steps"]
     passes = srv.stats["level_passes"] - stats0["level_passes"]
-
+    q16_passes = srv.metrics_snapshot()["level_passes_total"].get("level=q16_16", 0) - passes0
+    logits_ok = watch.ok()
     n_tokens = sum(f.n_generated for f in fins.values())
-    all_finite = bool(torch.stack(finite_flags).all().item())
 
     # isolation contract: the q16_16 request alone gives its mixed-batch tokens
     iso = reqs[0]
@@ -349,43 +709,101 @@ def serve_phase(seed: int):
         per_prefill[lv] = counts[0]
         per_tick[lv] = {k: counts[1][k] - counts[0][k] for k in counts[0]}
 
-    # time to first token: one 480-token prompt alone per level
+    # time to first token: each prompt length of ttft_lens alone per level
     ttft = {}
-    for lv in ("q16_16", "f32"):
-        sync()
-        t1 = time.perf_counter()
-        srv.serve([Request(rid=srv.next_rid(), prompt=prompts[-1], max_new=1, level=lv)])
-        sync()
-        ttft[lv] = (time.perf_counter() - t1) * 1e3
-    serve_mod._finish = orig_finish
+    for n in ttft_lens:
+        prompt = next(p for p in prompts if len(p) == n)
+        for lv in ("q16_16", "f32"):
+            sync()
+            t1 = time.perf_counter()
+            srv.serve([Request(rid=srv.next_rid(), prompt=prompt, max_new=1, level=lv)])
+            sync()
+            ttft[f"{lv}@{n}"] = (time.perf_counter() - t1) * 1e3
+    logits_all_ok = watch.ok()
+    watch.close()
 
-    emit({
+    rec = {
         "phase": "serving", "model": cfg.name, "layers": cfg.n_layers,
-        "d_model": cfg.d_model, "heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-        "n_slots": 4, "max_len": max_len, "requests": len(reqs), "prompt_lens": list(PROMPT_LENS),
-        "max_new": MAX_NEW, "levels": levels, "generated_tokens": n_tokens,
-        "serve_wall_s": wall, "tokens_per_s": n_tokens / wall,
-        "ttft_ms_480": ttft, "setup_s": setup_s, "launches": launches,
+        "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "windows": [s.window for s in cfg.period],
+        "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+        "n_slots": 4, "max_len": max_len, "requests": len(reqs),
+        "prompt_lens": list(prompt_lens), "max_new": MAX_NEW, "levels": list(levels),
+        "generated_tokens": n_tokens, "serve_wall_s": wall, "tokens_per_s": n_tokens / wall,
+        "ttft_ms": ttft, "setup_s": setup_s, "launches": launches,
         "launches_per_prefill": per_prefill, "launches_per_decode_tick": per_tick,
-        "decode_ticks": ticks, "level_passes": passes,
-        "all_logits_finite": all_finite, "isolation_ok": isolation_ok,
+        "decode_ticks": ticks, "level_passes": passes, "q16_16_passes": q16_passes,
+        "q16_16_prefills": sum(lv == "q16_16" for lv in levels),
+        "all_logits_ok": logits_all_ok, "isolation_ok": isolation_ok,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "nvidia_smi": nvidia_smi(),
-    })
+    }
+    emit(rec)
     for r in reqs:
         f = fins[r.rid]
         require(f.n_generated == MAX_NEW and len(f.tokens) == len(r.prompt) + MAX_NEW,
-                f"request {r.rid} finished with {f.n_generated} tokens ({f.reason})")
-    require(all_finite, "non-finite logits while serving")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched while serving")
-    require(isolation_ok, "the q16_16 request served alone differs from its mixed-batch tokens")
+                f"{cfg.name}: request {r.rid} finished with {f.n_generated} tokens ({f.reason})")
+    cap = f" and within |logit| <= {cfg.final_softcap}" if cfg.final_softcap else ""
+    require(logits_ok and logits_all_ok, f"{cfg.name}: logits not all finite{cap}")
+    require(isolation_ok, f"{cfg.name}: the q16_16 request served alone differs from its "
+                          "mixed-batch tokens")
+    return rec
+
+
+def deepseek_phase(seed: int):
+    """deepseek-7b: the slice-1 serving path (K1-K4)."""
+    rec = _serve_model("deepseek_7b", seed, 1024, PROMPT_LENS, LEVELS, (480,))
+    for name in ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention"):
+        require(rec["launches"][name] > 0, f"kernel {name} was not launched while serving")
+    return rec["launches"]
+
+
+def gemma2_phase(seed: int):
+    """gemma2-2b: sliding window, softcaps, tied head (K1-K5)."""
+    rec = _serve_model("gemma2_2b", seed, 8192, PROMPT_LENS + (LONG_PROMPT, LONG_PROMPT),
+                       LEVELS + ("q16_16", "f32"), (480, LONG_PROMPT))
+    launches = rec["launches"]
+    for name in ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention",
+                 "universal_unary"):
+        require(launches[name] > 0, f"gemma2-2b: kernel {name} was not launched while serving")
+    # the final softcap: one K5 tanh per q16_16 pass (prefill or decode)
+    want_k5 = rec["q16_16_prefills"] + rec["q16_16_passes"]
+    require(launches["universal_unary"] == want_k5,
+            f"gemma2-2b: K5 launched {launches['universal_unary']} times, want {want_k5}")
+    require(launches["flash_attention"] == 26 * rec["requests"],
+            f"gemma2-2b: K4 launched {launches['flash_attention']} times for "
+            f"{rec['requests']} prefills, want 26 each")
+    for lv in ("q16_16", "f32"):
+        require(rec["launches_per_prefill"][lv]["flash_attention"] == 26,
+                f"gemma2-2b: {lv} prefill launched K4 "
+                f"{rec['launches_per_prefill'][lv]['flash_attention']} times, want 26")
+    require(rec["launches_per_prefill"]["q16_16"]["universal_unary"] == 1
+            and rec["launches_per_decode_tick"]["q16_16"]["universal_unary"] == 1,
+            "gemma2-2b: K5 is not launched once per q16_16 pass")
     return launches
 
 
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+REPLACES = {
+    "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
+                "src/repro/kernels/qmatmul/qmatmul.py:50"),
+    "fused_swiglu": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
+                     "src/repro/kernels/fused_mlp/fused_mlp.py:115"),
+    "cordic_sincos": ("src/repro_torch/kernels/csrc/cordic.cu",
+                      "src/repro/kernels/cordic/cordic.py:37"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flashattn.cu",
+                        "src/repro/kernels/flashattn/flashattn.py:37"),
+    "universal_unary": ("src/repro_torch/kernels/csrc/universal.cu",
+                        "src/repro/kernels/cordic/universal.py:51"),
+    "atan2_q16": ("src/repro_torch/kernels/csrc/universal.cu",
+                  "src/repro/kernels/cordic/universal.py:55"),
+    "div_q16": ("src/repro_torch/kernels/csrc/universal.cu",
+                "src/repro/kernels/cordic/universal.py:59"),
+}
 
 
 def main(argv=None) -> int:
@@ -410,8 +828,11 @@ def main(argv=None) -> int:
               "repository root", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     print(smi, flush=True)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    PEAK_OPS["int32"] = N_SMS * INT32_LANES * clock_mhz * 1e6
     t0 = time.perf_counter()
     build = compat.build_kernels()
     build_s = time.perf_counter() - t0
@@ -420,30 +841,41 @@ def main(argv=None) -> int:
         log = compat.BUILD_DIR / f"{name}.log"
         if log.exists():
             ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                           if "registers" in ln or "spill" in ln][:8]
-    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+                           if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit({"phase": "device", "nvidia_smi": smi, "max_sm_clock_mhz": clock_mhz,
+          "int32_ops_per_s": PEAK_OPS["int32"], "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": round(build_s, 3),
           "build_per_source_s": {k: round(v, 3) for k, v in build.items()}, "ptxas": ptxas})
 
     gen = torch.Generator().manual_seed(args.seed)
+    torch.cuda.reset_peak_memory_stats()
     records = check_kernels(gen)
-    launches = {name: None for name in records}
+    emit({"phase": "kernels", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "elapsed_s": time.perf_counter() - t_start})
+    by_path = {}
     if args.only != "kernels":
-        launches = serve_phase(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["engine"] = engine_phase(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["deepseek_7b"] = deepseek_phase(args.seed)
+        emit({"phase": "deepseek_7b done", "elapsed_s": time.perf_counter() - t_start})
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["gemma2_2b"] = gemma2_phase(args.seed)
+        emit({"phase": "gemma2_2b done", "elapsed_s": time.perf_counter() - t_start})
 
-    replaces = {
-        "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul/qmatmul.py:50"),
-        "fused_swiglu": ("src/repro_torch/kernels/csrc/fused_mlp.cu", "src/repro/kernels/fused_mlp/fused_mlp.py:115"),
-        "cordic_sincos": ("src/repro_torch/kernels/csrc/cordic.cu", "src/repro/kernels/cordic/cordic.py:37"),
-        "flash_attention": ("src/repro_torch/kernels/csrc/flashattn.cu", "src/repro/kernels/flashattn/flashattn.py:37"),
-    }
     kernels = []
-    for name, (src, rep) in replaces.items():
+    for name in KERNELS:
+        src, rep = REPLACES[name]
         r = records[name]
+        paths = {p: c[name] for p, c in by_path.items() if name in c}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "launches": sum(paths.values()) if by_path else None, "launches_by_path": paths,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": r["case"],
         })
     emit({"kernels": kernels})

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time goes when the PyTorch port serves deepseek-7b on the card.
+"""Where the time goes when the PyTorch port serves a model on the card.
 
 Usage (repository root, on a machine with an NVIDIA card)::
 
-    python3 profile_torch_serving.py [--out build/profile.txt]
+    python3 profile_torch_serving.py [--model gemma2_2b] [--out FILE]
 
-Builds the full deepseek-7b model (random weights from a seed) behind
-``ContinuousBatchingServer(n_slots=4, max_len=1024)`` with the timing
-tier of the server's telemetry on (no device barriers, no trace), and
-measures windows of real ``serve()`` calls:
+Builds the full model (deepseek-7b by default, or gemma2-2b; random
+weights from a seed) behind ``ContinuousBatchingServer(n_slots=4,
+max_len=1024)`` (gemma2-2b: ``max_len=8192``, its published context)
+with the timing tier of the server's telemetry on (no device barriers,
+no trace), and measures windows of real ``serve()`` calls:
 
-* ``prefill <rung>``: one 480-token prompt, ``max_new=1``;
+* ``prefill <n> <rung>``: one 480-token prompt (gemma2-2b: and one of
+  4500 tokens, past the local layers' window), ``max_new=1``;
 * ``admit4``: four 64-token prompts, two per rung, ``max_new=1``;
 * ``admit4+decode``: the same four with ``max_new=TICKS+1``; the
   difference of the two is ``decode``, ``TICKS`` mixed decode ticks;
 * ``mixed``: the workload of ``chip_smoke.py`` (8 requests, prompt
-  lengths 17-480, 16 new tokens each, half per rung).
+  lengths 17-480, 16 new tokens each, half per rung; gemma2-2b adds one
+  4500-token prompt per rung).
 
 Each window is served twice on the same prompts: once plain, for the
 host wall time and the server's ``tick_seconds`` / ``prefill_seconds``
@@ -44,12 +47,16 @@ LEVELS = ("q16_16", "f32", "f32", "f32", "q16_16", "q16_16", "q16_16", "f32")
 MAX_NEW = 16
 #: decode ticks in the decode window
 TICKS = 16
+#: model -> (pool length, the long prompts its workload adds)
+MODELS = {"deepseek_7b": (1024, ()), "gemma2_2b": (8192, (4500,))}
 PHASES = ("host_schedule", "device_dispatch", "sync")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile.txt"))
+    ap.add_argument("--model", choices=sorted(MODELS), default="deepseek_7b")
+    ap.add_argument("--out", default=None,
+                    help="profiler tables (default: build/profile-<model>.txt)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -68,8 +75,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    cfg = get_config("deepseek_7b")
-    scfg = ServingConfig(n_slots=4, max_len=1024,
+    max_len, long_prompts = MODELS[args.model]
+    out_path = args.out or os.path.join(ROOT, "build", f"profile-{args.model}.txt")
+    cfg = get_config(args.model)
+    scfg = ServingConfig(n_slots=4, max_len=max_len,
                          telemetry=TelemetryConfig(enabled=True, trace=False))
     srv = ContinuousBatchingServer(cfg, init_params(cfg, seed=args.seed), scfg)
     rng = np.random.default_rng(args.seed)
@@ -132,8 +141,9 @@ def main(argv=None) -> int:
                       + events.table(sort_by="self_cuda_time_total", row_limit=30))
         return rec
 
-    for lv in ("q16_16", "f32"):
-        window(f"prefill 480 tokens at {lv}", [(prompt(480), 1, lv)])
+    for n in (480,) + long_prompts:
+        for lv in ("q16_16", "f32"):
+            window(f"prefill {n} tokens at {lv}", [(prompt(n), 1, lv)])
 
     four = [(prompt(64), lv) for lv in ("q16_16", "f32", "q16_16", "f32")]
     admit = window("admit4: four 64-token prefills (2 q16_16 + 2 f32)",
@@ -152,11 +162,13 @@ def main(argv=None) -> int:
         "nvidia_smi": smi,
     }), flush=True)
 
-    mixed = [(prompt(n), MAX_NEW, lv) for n, lv in zip(PROMPT_LENS, LEVELS)]
-    window("mixed: chip_smoke.py's 8-request workload", mixed)
+    lens = PROMPT_LENS + tuple(n for n in long_prompts for _ in range(2))
+    levels = LEVELS + tuple(lv for _ in long_prompts for lv in ("q16_16", "f32"))
+    mixed = [(prompt(n), MAX_NEW, lv) for n, lv in zip(lens, levels)]
+    window(f"mixed: chip_smoke.py's {len(mixed)}-request workload", mixed)
 
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
         f.write("\n\n".join(tables))
     return 0
 

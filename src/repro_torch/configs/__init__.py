@@ -1,7 +1,9 @@
 """Architecture configs (reference: ``src/repro/configs/__init__.py``).
 
 The port carries the families whose layers it has ported: deepseek_7b
-(dense GQA attention + SwiGLU).  ``get_config`` raises
+(dense GQA attention + SwiGLU) and gemma2_2b (the same, with local /
+global sliding-window periods, score and final softcaps, tied
+embeddings).  ``get_config`` raises
 ``NotImplementedError`` naming the ROADMAP item for every other family.
 """
 
@@ -24,11 +26,10 @@ ARCH_IDS = (
     "musicgen_large",
 )
 
-PORTED = ("deepseek_7b",)
+PORTED = ("deepseek_7b", "gemma2_2b")
 
 #: where each family not ported yet stands in ROADMAP.md
 _WAITING = {
-    "gemma2_2b": "queue 1 item 7 (gemma2: sliding window and softcap)",
     "command_r_35b": "queue 1 item 7 (dense decoders after deepseek_7b)",
     "granite_moe_3b_a800m": "queue 1 item 10 (MoE)",
     "mixtral_8x22b": "queue 1 item 10 (MoE)",

@@ -3,7 +3,7 @@ power-of-two quantization, CORDIC bodies, the precision ladder with its
 two-phase barrier, and the per-slot arbiter."""
 
 from repro_torch.core.arbiter import SlotArbiter, SlotArbiterConfig
-from repro_torch.core.precision import MathEngine, Mode, PrecisionLevel, resolve_level
+from repro_torch.core.precision import MathEngine, Mode, PrecisionLevel, PrecisionPolicy, resolve_level
 from repro_torch.core.quantization import QTensor, QuantizedWeightCache, dequantize_pow2, quantize_pow2
 
 __all__ = [
@@ -12,6 +12,7 @@ __all__ = [
     "MathEngine",
     "Mode",
     "PrecisionLevel",
+    "PrecisionPolicy",
     "resolve_level",
     "QTensor",
     "QuantizedWeightCache",

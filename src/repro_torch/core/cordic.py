@@ -1,15 +1,23 @@
-"""CORDIC bodies on int32 tensors (paper §3.2, §5.2; Listing 2) — the
-parts the serving path needs.
+"""CORDIC bodies on int32 tensors (paper §3.2, §5.2; Listing 2).
 
 Reference: ``src/repro/core/cordic.py``.  Ported here:
 
 * circular rotation: ``cordic_sincos_q16`` with ``_range_reduce_q``,
-  the atan table and the gain (the FAST RoPE tables, kernel K3);
+  the atan table and the gain (the FAST RoPE tables, kernel K3), and
+  ``cordic_rotate_q16`` (rotation of given vectors);
+* circular vectoring: ``atan2_q16_body`` (kernel K6) and ``atan2_q24``;
 * the hyperbolic helpers ``_ilog2``, ``_shift_signed``,
   ``_round_shift_right``, ``_hyper_vectoring``/``_hyper_rotation``, the
-  linear-vectoring divide ``_linear_div_q16`` and ``div_q16_body``,
-  ``exp_q16_body``, ``tanh_q16_body`` and ``sigmoid_q16_body`` (the
-  in-kernel sigmoid of the fused SwiGLU, kernel K2);
+  linear-vectoring divide ``_linear_div_q16`` and ``div_q16_body``
+  (kernel K7), ``sqrt_q16_body``, ``exp_q16_body``, ``log_q16_body``,
+  ``tanh_q16_body`` and ``sigmoid_q16_body`` (kernel K5; the sigmoid is
+  also the in-kernel sigmoid of the fused SwiGLU, kernel K2);
+* the float-boundary sincos ``cordic_sincos``/``cordic_sincos24``
+  (K3: on a CUDA tensor the kernel, on a CPU tensor these bodies — the
+  same bits either way).  The reference's other float-boundary wrappers
+  (``cordic_atan2``, ``cordic_atan2_24``, ``cordic_div``,
+  ``cordic_sqrt``/``exp``/``log``/``tanh``/``sigmoid``) are the public
+  ops of ``kernels/cordic/ops.py``, over kernels K5-K7;
 * the exact RoPE phase ``rope_inv_freq_q64`` / ``exact_rope_phase_q16``,
   computed in int64 masked to 32 bits — bit-exact with the reference's
   uint32-limb arithmetic.
@@ -18,9 +26,7 @@ These are the PLAIN PyTorch bodies: int32 tensors with the reference's
 integer semantics (wrapping add/sub, shifts where a count of 32 or more
 gives 0 on the left and the sign fill on the right — PyTorch's int32
 shifts already behave so).  The CUDA kernels in ``kernels/csrc``
-implement the same functions and are held against these.  ``sqrt``,
-``log``, ``atan2`` and the float-boundary wrappers of the universal
-family wait for kernels K5-K7 (ROADMAP queue 2).
+implement the same functions and are held against these.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.qformat import Q8_24, Q16_16, from_fixed, to_fixed
+from repro_torch.core.qformat import Q8_24, from_fixed, q_mul, to_fixed
 
 __all__ = [
     "ATAN_TABLE_Q16",
@@ -54,8 +60,13 @@ __all__ = [
     "cordic_sincos_q16",
     "cordic_sincos",
     "cordic_sincos24",
+    "cordic_rotate_q16",
+    "atan2_q16_body",
+    "atan2_q24",
     "div_q16_body",
+    "sqrt_q16_body",
     "exp_q16_body",
+    "log_q16_body",
     "tanh_q16_body",
     "sigmoid_q16_body",
     "rope_inv_freq_q64",
@@ -140,10 +151,9 @@ def cordic_sincos_q16(theta_q: torch.Tensor, iterations: int = 16, frac_bits: in
 
 def cordic_sincos(theta: torch.Tensor, iterations: int = 16):
     """Float in / float out Q16.16 sincos through kernel K3."""
-    from repro_torch.kernels.cordic import cordic_sincos as k3
+    from repro_torch.kernels.cordic.ops import sincos
 
-    s, c = k3(to_fixed(theta, Q16_16), iterations=iterations)
-    return from_fixed(s, Q16_16), from_fixed(c, Q16_16)
+    return sincos(theta, iterations)
 
 
 def cordic_sincos24(theta: torch.Tensor, iterations: int = ITER_Q24):
@@ -152,6 +162,28 @@ def cordic_sincos24(theta: torch.Tensor, iterations: int = ITER_Q24):
 
     s, c = k3(to_fixed(theta, Q8_24), iterations=iterations, frac_bits=24)
     return from_fixed(s, Q8_24), from_fixed(c, Q8_24)
+
+
+def cordic_rotate_q16(x_q, y_q, theta_q, iterations: int = 16, frac_bits: int = 16):
+    """Rotate fixed-point vectors (x, y) by theta, multiplier-free: the
+    gain is folded in by pre-scaling with K^-1 (a rounded Q(m.n)
+    product).  The angle is reduced on the Q16.16 circle whatever
+    ``frac_bits`` is, as in the reference."""
+    table = atan_table(iterations, frac_bits)
+    k_inv = gain_inverse(iterations, frac_bits)
+    z, negate = _range_reduce_q(theta_q, 16)
+    x = q_mul(torch.as_tensor(x_q, dtype=torch.int32), k_inv, frac_bits=frac_bits)
+    y = q_mul(torch.as_tensor(y_q, dtype=torch.int32), k_inv, frac_bits=frac_bits)
+    for i in range(iterations):
+        d_pos = z >= 0
+        xs = x >> i
+        ys = y >> i
+        x, y, z = (
+            torch.where(d_pos, x - ys, x + ys),
+            torch.where(d_pos, y + xs, y - xs),
+            torch.where(d_pos, z - int(table[i]), z + int(table[i])),
+        )
+    return torch.where(negate, -x, x), torch.where(negate, -y, y)
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +328,62 @@ def div_q16_body(num_q: torch.Tensor, den_q: torch.Tensor, iterations: int = 17)
     )
 
 
+def atan2_q16_body(y_q, x_q, iterations: int = 16, frac_bits: int = 16):
+    """Circular-vectoring atan2 on Q(m.n) operands.  The operands are
+    normalised so max(|x|, |y|) sits at bit 28 (atan2 is scale-invariant,
+    so ``frac_bits`` selects only the output angle format: 24 is the
+    Q8.24 rung); x < 0 is folded into the right half-plane by point
+    reflection and +/-pi restored from the sign of y; atan2(0, 0) = 0."""
+    y0 = _clamp_raw(y_q)
+    x0 = _clamp_raw(x_q)
+    table = atan_table(iterations, frac_bits)
+    pi_q = angle_consts(frac_bits)[0]
+    neg_x = x0 < 0
+    x1 = torch.where(neg_x, -x0, x0)
+    y1 = torch.where(neg_x, -y0, y0)
+    m = torch.maximum(x1.abs(), y1.abs())
+    s = 28 - _ilog2(torch.clamp_min(m, 1))
+    x1 = _shift_signed(x1, -s)
+    y1 = _shift_signed(y1, -s)
+    z = torch.zeros_like(x1)
+    for i in range(iterations):
+        neg = y1 < 0
+        xs = x1 >> i
+        ys = y1 >> i
+        t = int(table[i])
+        x1, y1, z = (
+            torch.where(neg, x1 - ys, x1 + ys),
+            torch.where(neg, y1 + xs, y1 - xs),
+            torch.where(neg, z - t, z + t),
+        )
+    half_turn = torch.where(y0 < 0, _i32(-pi_q, y0), _i32(pi_q, y0))
+    out = torch.where(neg_x, z + half_turn, z)
+    return torch.where((x0 == 0) & (y0 == 0), torch.zeros_like(out), out)
+
+
+def atan2_q24(y_q, x_q, iterations: int = ITER_Q24):
+    """atan2 with a Q8.24 output angle (the ``q8_24`` rung)."""
+    return atan2_q16_body(y_q, x_q, iterations=iterations, frac_bits=24)
+
+
+def sqrt_q16_body(w_q, stages: int = HYPER_STAGES):
+    """Hyperbolic-vectoring square root on Q16.16; w <= 0 returns 0.
+    w = u * 2**s with s even and u in [0.5, 2); sqrt(u) is the vectoring
+    magnitude of (u + 1/4, u - 1/4) times K_h^-1 (Q3.29)."""
+    w = _clamp_raw(w_q)
+    k_h_inv = hyper_gain_inverse(hyperbolic_schedule(stages), _HFRAC)
+    b = _ilog2(torch.clamp_min(w, 1))
+    s0 = b - 16
+    s = torch.where((s0 & 1) == 0, s0, s0 + 1)
+    u = _shift_signed(w, s)
+    u29 = u << (_HFRAC - 16)
+    quarter = 1 << (_HFRAC - 2)
+    x, _, _ = _hyper_vectoring(u29 + quarter, u29 - quarter, torch.zeros_like(u29), stages)
+    r29 = q_mul(x, k_h_inv, frac_bits=_HFRAC)
+    out = _round_shift_right(r29, (_HFRAC - 16) - (s >> 1))
+    return torch.where(w <= 0, torch.zeros_like(out), out)
+
+
 def _q_mul16(a: torch.Tensor, b: int) -> torch.Tensor:
     """Rounded Q16.16 product (core.qformat.q_mul at its defaults)."""
     return ((a.to(torch.int64) * b + (1 << 15)) >> 16).to(torch.int32)
@@ -318,6 +406,20 @@ def exp_q16_body(t_q: torch.Tensor, stages: int = HYPER_STAGES):
     out = torch.where(fits, rs << sl, _i32(_RAW_MAX, rs))
     out = torch.where(t >= EXP_SAT_HI_Q16, _i32(_RAW_MAX, out), out)
     return torch.where(t <= EXP_FLUSH_LO_Q16, torch.zeros_like(out), out)
+
+
+def log_q16_body(w_q, stages: int = HYPER_STAGES):
+    """Hyperbolic-vectoring natural log on Q16.16: ln w = 2*atanh((u-1)/
+    (u+1)) + k*ln2 for u = w*2**-k in [1, 2); w <= 0 returns Q16.16 min."""
+    w = _clamp_raw(w_q)
+    b = _ilog2(torch.clamp_min(w, 1))
+    k = b - 16
+    u = _shift_signed(w, k)
+    u29 = u << (_HFRAC - 16)
+    one29 = 1 << _HFRAC
+    _, _, z = _hyper_vectoring(u29 + one29, u29 - one29, torch.zeros_like(u29), stages)
+    lnu = (z + (1 << (_HFRAC - 18))) >> (_HFRAC - 17)
+    return torch.where(w <= 0, _i32(_RAW_MIN, w), lnu + k * LN2_Q16)
 
 
 def tanh_q16_body(t_q: torch.Tensor, stages: int = HYPER_STAGES):

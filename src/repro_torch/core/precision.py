@@ -2,21 +2,27 @@
 
 Reference: ``src/repro/core/precision.py``.  Ported: the level registry
 (``q8_8 < q16_16 < q8_24 < f32``), :class:`PrecisionLevel`,
-:func:`resolve_level`, the ``Mode`` compat aliases, and
-:class:`MathEngine` with ``register``, ``call``, ``set_level``, ``at``,
-``weight_cache``, ``invalidate_weights`` and ``switched``.
+:func:`resolve_level`, the ``Mode`` compat aliases,
+:class:`PrecisionPolicy` (per-op level overrides) and
+:class:`MathEngine` with ``register``, ``call``, ``set_level``,
+``set_policy``, ``at`` (a level or a policy), ``weight_cache``,
+``invalidate_weights`` and ``switched``.
 
 ``switched`` has no ``lax.switch`` to build here: PyTorch runs eagerly,
 so it returns the per-level TABLE of callables, indexed by an int —
 ``table[level_idx](*args)`` — which is what the serving loop dispatches
-through.  ``PrecisionPolicy`` (per-op overrides) waits for a later
-slice.
+through.  ``call`` resolves the op's level through the active policy
+(per-op override, else the policy's default, else the engine's level)
+and the ladder fallback, as the reference's context tables do; the
+immutable ``PrecisionContext`` objects themselves are not carried over.
 
-``_default_ops`` registers only the ops whose bodies this slice ports:
-``mul``/``add``/``sub`` (Q-format core) and ``sin``/``cos`` (kernel K3).
-``atan2``, ``div``, ``sqrt``, ``exp``, ``log``, ``tanh``, ``sigmoid``
-and ``matmul`` wait for kernels K5-K7 and the linalg port (ROADMAP.md
-queue 1 item 5, queue 2).
+``_default_ops`` registers the reference's op set except ``matmul``
+(``core/linalg.py`` is not ported yet; ROADMAP.md queue 1 item 5):
+``mul``/``add``/``sub`` (Q-format core), ``sin``/``cos`` (kernel K3),
+and the universal family at the float boundary — ``atan2`` (K6, with a
+``q8_24`` rung), ``div`` (K7), ``sqrt``/``exp``/``log``/``tanh``/
+``sigmoid`` (K5).  On CUDA tensors the fixed rungs launch those
+kernels; the ``f32`` rung is the torch function.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -37,6 +43,7 @@ from repro_torch.core.qformat import Q8_8, Q8_24, Q16_16, QFormat
 __all__ = [
     "Mode",
     "PrecisionLevel",
+    "PrecisionPolicy",
     "MathEngine",
     "SwitchStats",
     "register_level",
@@ -126,6 +133,34 @@ register_level(PrecisionLevel("q8_24", qformat=Q8_24, description="high-precisio
 register_level(PrecisionLevel("f32", dtype=torch.float32, description="IEEE 754 binary32"))
 
 
+@dataclass(frozen=True)
+class PrecisionPolicy:
+    """op -> level overrides on top of a default level.
+
+    ``default`` None means "the engine's current level" — the policy then
+    only pins the listed ops.  Hashable: ``per_op`` is normalised to a
+    sorted tuple of (op, level name) at construction."""
+
+    default: Optional[str] = None
+    per_op: Tuple[Tuple[str, str], ...] = ()
+
+    def __post_init__(self):
+        if self.default is not None:
+            object.__setattr__(self, "default", resolve_level(self.default).name)
+        items = self.per_op.items() if isinstance(self.per_op, Mapping) else self.per_op
+        norm = tuple(sorted((op, resolve_level(lv).name) for op, lv in items))
+        object.__setattr__(self, "per_op", norm)
+
+    def level_for(self, op: str, fallback: str) -> str:
+        for name, lv in self.per_op:
+            if name == op:
+                return lv
+        return self.default if self.default is not None else fallback
+
+    def __contains__(self, op: str) -> bool:
+        return any(name == op for name, _ in self.per_op)
+
+
 @dataclass
 class SwitchStats:
     count: int = 0
@@ -138,9 +173,11 @@ class MathEngine:
     """Paper §4.4 public API, ladder edition (see module docstring)."""
 
     def __init__(self, level: LevelSpec = Mode.PRECISE, *,
-                 barrier: Optional[TwoPhaseBarrier] = None):
+                 barrier: Optional[TwoPhaseBarrier] = None,
+                 policy: Optional[PrecisionPolicy] = None):
         self._impls: Dict[str, Dict[str, Callable]] = {}
         self._level = resolve_level(level)
+        self._policy = policy
         self._barrier = barrier or TwoPhaseBarrier()
         self._lock = threading.RLock()
         self._inflight: Any = None
@@ -152,6 +189,7 @@ class MathEngine:
 
     def _default_ops(self):
         from repro_torch.core import cordic, qformat
+        from repro_torch.kernels.cordic import ops
 
         self.register(
             "mul",
@@ -174,6 +212,11 @@ class MathEngine:
             q8_24=lambda t: cordic.cordic_sincos24(t)[1],
             f32=torch.cos,
         )
+        self.register("atan2", q16_16=ops.atan2, q8_24=ops.atan2_24, f32=torch.atan2)
+        for op, f32 in (("sqrt", torch.sqrt), ("exp", torch.exp), ("log", torch.log),
+                        ("tanh", torch.tanh), ("sigmoid", torch.sigmoid)):
+            self.register(op, q16_16=partial(ops.unary_op, op=op), f32=f32)
+        self.register("div", q16_16=ops.div, f32=lambda a, b: a / b)
 
     def register(self, name: str, *, fast: Optional[Callable] = None,
                  precise: Optional[Callable] = None, **level_impls: Callable) -> None:
@@ -217,6 +260,10 @@ class MathEngine:
     def mode(self) -> Mode:
         return self._level.mode
 
+    @property
+    def policy(self) -> Optional[PrecisionPolicy]:
+        return self._policy
+
     def set_mode(self, mode: LevelSpec) -> float:
         return self.set_level(mode)
 
@@ -229,9 +276,27 @@ class MathEngine:
                 return 0.0
             return self._swap(lambda: setattr(self, "_level", target), tag=target.name)
 
+    def set_policy(self, policy: Optional[PrecisionPolicy]) -> float:
+        """Swap the per-op policy through the same two-phase barrier; an
+        equal policy is a free no-op."""
+        with self._lock:
+            if policy == self._policy:
+                return 0.0
+            return self._swap(lambda: setattr(self, "_policy", policy), tag=f"policy:{policy!r}")
+
     @contextlib.contextmanager
-    def at(self, spec: LevelSpec):
-        """Scoped dispatch: ``with engine.at("q8_24"): ...``."""
+    def at(self, spec: Union[LevelSpec, PrecisionPolicy]):
+        """Scoped dispatch: ``with engine.at("q8_24"): ...`` switches the
+        level, ``with engine.at(PrecisionPolicy(...)): ...`` the policy;
+        the previous one is restored on exit."""
+        if isinstance(spec, PrecisionPolicy):
+            prev_policy = self._policy
+            self.set_policy(spec)
+            try:
+                yield self
+            finally:
+                self.set_policy(prev_policy)
+            return
         prev = self._level
         self.set_level(spec)
         try:
@@ -270,10 +335,17 @@ class MathEngine:
 
     # -- dispatch ----------------------------------------------------------
 
+    def level_for(self, name: str) -> str:
+        """The level ``call(name, ...)`` dispatches at: the policy's
+        override or default, else the engine's level."""
+        if self._policy is None:
+            return self._level.name
+        return self._policy.level_for(name, self._level.name)
+
     def call(self, name: str, *args, **kw):
-        """Dispatch at the current level, tracking the in-flight result
-        so the barrier can quiesce it."""
-        out = self._impl_for(name, self._level.name)(*args, **kw)
+        """Dispatch at the op's level (see :meth:`level_for`), tracking
+        the in-flight result so the barrier can quiesce it."""
+        out = self._impl_for(name, self.level_for(name))(*args, **kw)
         self._inflight = out
         return out
 

@@ -1,9 +1,15 @@
-// CORDIC device functions shared by K2 (fused SwiGLU sigmoid) and K3
-// (sincos).  Each function is the C form of the body of the same name in
+// CORDIC device functions shared by K2 (fused SwiGLU sigmoid) and K5-K7
+// (universal.cu: sqrt exp log tanh sigmoid, atan2, div).  Each function
+// is the C form of the body of the same name in
 // src/repro_torch/core/cordic.py (reference: src/repro/core/cordic.py)
 // and must match it bit for bit.  The constants are the reference's
 // generators evaluated once; tests/test_torch_kernels.py re-derives
 // them and compares with this file.
+//
+// The hyperbolic functions are templates over their schedule: K2 uses
+// DefaultHyper (the 20-stage schedule in constant memory, unrolled at
+// compile time); K5 passes HyperParams by value, so any `stages` the
+// reference accepts runs the same code.
 #pragma once
 
 #include "common.cuh"
@@ -54,12 +60,35 @@ __device__ __forceinline__ int32_t round_shift_right(int32_t v, int32_t s) {
   return sar(wadd(v, half), s);
 }
 
+// the default schedule (HYPER_STAGES stages), in constant memory
+struct DefaultHyper {
+  __device__ __forceinline__ int stages() const { return HYPER_STAGES; }
+  // every shift of the default schedule is below 32
+  __device__ __forceinline__ int32_t shr(int32_t v, int j) const { return v >> HYPER_SHIFT[j]; }
+  __device__ __forceinline__ int32_t atanh(int j) const { return ATANH_Q29[j]; }
+  __device__ __forceinline__ int32_t k_h_inv() const { return K_H_INV_Q29; }
+};
+
+// any schedule: hyperbolic_schedule(stages), atanh_table(schedule, 29)
+// and hyper_gain_inverse(schedule, 29), filled in by the host
+constexpr int MAX_HYPER_STAGES = 64;
+struct HyperParams {
+  int32_t shift_[MAX_HYPER_STAGES];
+  int32_t atanh_[MAX_HYPER_STAGES];
+  int32_t stages_;
+  int32_t k_h_inv_;
+  __device__ __forceinline__ int stages() const { return stages_; }
+  __device__ __forceinline__ int32_t shr(int32_t v, int j) const { return sar(v, shift_[j]); }
+  __device__ __forceinline__ int32_t atanh(int j) const { return atanh_[j]; }
+  __device__ __forceinline__ int32_t k_h_inv() const { return k_h_inv_; }
+};
+
 // rotation mode: drive z -> 0 from (x, y, z); results in x, y
-__device__ __forceinline__ void hyper_rotation(int32_t& x, int32_t& y, int32_t z) {
+template <class H>
+__device__ __forceinline__ void hyper_rotation(int32_t& x, int32_t& y, int32_t z, const H& h) {
 #pragma unroll
-  for (int j = 0; j < HYPER_STAGES; ++j) {
-    const int i = HYPER_SHIFT[j];
-    const int32_t xs = x >> i, ys = y >> i, t = ATANH_Q29[j];
+  for (int j = 0; j < h.stages(); ++j) {
+    const int32_t xs = h.shr(x, j), ys = h.shr(y, j), t = h.atanh(j);
     if (z >= 0) {
       x = wadd(x, ys);
       y = wadd(y, xs);
@@ -72,16 +101,34 @@ __device__ __forceinline__ void hyper_rotation(int32_t& x, int32_t& y, int32_t z
   }
 }
 
+// vectoring mode: drive y -> 0 from (x, y, z); results in x, z
+template <class H>
+__device__ __forceinline__ void hyper_vectoring(int32_t& x, int32_t y, int32_t& z, const H& h) {
+#pragma unroll
+  for (int j = 0; j < h.stages(); ++j) {
+    const int32_t xs = h.shr(x, j), ys = h.shr(y, j), t = h.atanh(j);
+    if (y < 0) {
+      x = wadd(x, ys);
+      y = wadd(y, xs);
+      z = wsub(z, t);
+    } else {
+      x = wsub(x, ys);
+      y = wsub(y, xs);
+      z = wadd(z, t);
+    }
+  }
+}
+
 // linear vectoring: num/den in Q16.16 for den > 0, |num| <= den
-__device__ __forceinline__ int32_t linear_div_q16(int32_t num, int32_t den) {
+__device__ __forceinline__ int32_t linear_div_q16(int32_t num, int32_t den, int iterations = 17) {
   const int32_t b = ilog2(imax(den, 1));
   const int32_t s = HFRAC - b;
   const int32_t x = shift_signed(den, -s);
   int32_t y = shift_signed(num, -s);
   int32_t z = 0;
-#pragma unroll
-  for (int i = 0; i < 17; ++i) {
-    const int32_t xs = x >> i, t = U16 >> i;
+#pragma unroll 17
+  for (int i = 0; i < iterations; ++i) {
+    const int32_t xs = sar(x, i), t = sar(U16, i);
     if (y >= 0) {
       y = wsub(y, xs);
       z = wadd(z, t);
@@ -93,20 +140,23 @@ __device__ __forceinline__ int32_t linear_div_q16(int32_t num, int32_t den) {
   return z;
 }
 
-// rounded Q16.16 product (core.qformat.q_mul at its defaults)
-__device__ __forceinline__ int32_t q_mul16(int32_t a, int32_t b) {
-  const int64_t p = static_cast<int64_t>(a) * static_cast<int64_t>(b) + 32768;
-  return static_cast<int32_t>(static_cast<uint32_t>(static_cast<uint64_t>(p) >> 16));
+// rounded Q(m.n) product with a 64-bit intermediate, low 32 bits kept
+// (core.qformat.q_mul with rounding, no saturation)
+__device__ __forceinline__ int32_t q_mul(int32_t a, int32_t b, int frac_bits) {
+  const int64_t p = static_cast<int64_t>(a) * static_cast<int64_t>(b) + (int64_t{1} << (frac_bits - 1));
+  return static_cast<int32_t>(static_cast<uint32_t>(static_cast<uint64_t>(p >> frac_bits)));
 }
+__device__ __forceinline__ int32_t q_mul16(int32_t a, int32_t b) { return q_mul(a, b, 16); }
 
-__device__ __forceinline__ int32_t exp_q16(int32_t t) {
+template <class H>
+__device__ __forceinline__ int32_t exp_q16(int32_t t, const H& h) {
   if (t <= EXP_FLUSH_LO_Q16) return 0;
   if (t >= EXP_SAT_HI_Q16) return RAW_MAX;
   const int32_t tc = imin(imax(t, EXP_FLUSH_LO_Q16 - U16), EXP_SAT_HI_Q16 + U16);
   const int32_t k = (wadd(q_mul16(tc, INV_LN2_Q16), 1 << 15)) >> 16;
   const int32_t r = wsub(tc, k * LN2_Q16);
-  int32_t x = K_H_INV_Q29, y = 0;
-  hyper_rotation(x, y, shl(r, HFRAC - 16));
+  int32_t x = h.k_h_inv(), y = 0;
+  hyper_rotation(x, y, shl(r, HFRAC - 16), h);
   const int32_t er = wadd(x, y);
   const int32_t sh = (HFRAC - 16) - k;
   const int32_t rs = round_shift_right(er, imax(sh, 0));
@@ -114,26 +164,112 @@ __device__ __forceinline__ int32_t exp_q16(int32_t t) {
   return rs <= (RAW_MAX >> imin(sl, 31)) && sl < 32 ? shl(rs, sl) : RAW_MAX;
 }
 
-__device__ __forceinline__ int32_t tanh_q16(int32_t t_in) {
+template <class H>
+__device__ __forceinline__ int32_t tanh_q16(int32_t t_in, const H& h) {
   const int32_t t = clamp_raw(t_in);
   const int32_t at = t < 0 ? -t : t;
   int32_t mag;
   if (at <= U16) {
-    int32_t x = K_H_INV_Q29, y = 0;
-    hyper_rotation(x, y, shl(at, HFRAC - 16));
+    int32_t x = h.k_h_inv(), y = 0;
+    hyper_rotation(x, y, shl(at, HFRAC - 16), h);
     mag = linear_div_q16(y >> (HFRAC - 16), imax(x >> (HFRAC - 16), 1));
   } else {
     const int32_t a2 = imin(at, -EXP_FLUSH_LO_Q16);
-    const int32_t e = exp_q16(-(a2 << 1));
+    const int32_t e = exp_q16(-(a2 << 1), h);
     mag = linear_div_q16(U16 - e, U16 + e);
   }
   mag = imin(mag, U16);
   return t < 0 ? -mag : mag;
 }
 
-__device__ __forceinline__ int32_t sigmoid_q16(int32_t t_in) {
+template <class H>
+__device__ __forceinline__ int32_t sigmoid_q16(int32_t t_in, const H& h) {
   const int32_t t = clamp_raw(t_in);
-  return wadd(tanh_q16(t >> 1), U16 + 1) >> 1;
+  return wadd(tanh_q16(t >> 1, h), U16 + 1) >> 1;
+}
+
+// K2's sigmoid: the default schedule
+__device__ __forceinline__ int32_t sigmoid_q16(int32_t t_in) { return sigmoid_q16(t_in, DefaultHyper{}); }
+
+// sqrt: w = u * 2**s (s even, u in [0.5, 2)), vectoring of (u + 1/4,
+// u - 1/4) gives K_h * sqrt(u); w <= 0 gives 0
+template <class H>
+__device__ __forceinline__ int32_t sqrt_q16(int32_t w_in, const H& h) {
+  const int32_t w = clamp_raw(w_in);
+  if (w <= 0) return 0;
+  const int32_t s0 = ilog2(w) - 16;
+  const int32_t s = (s0 & 1) == 0 ? s0 : s0 + 1;
+  const int32_t u29 = shl(shift_signed(w, s), HFRAC - 16);
+  const int32_t quarter = 1 << (HFRAC - 2);
+  int32_t x = wadd(u29, quarter), z = 0;
+  hyper_vectoring(x, wsub(u29, quarter), z, h);
+  const int32_t r29 = q_mul(x, h.k_h_inv(), HFRAC);
+  return round_shift_right(r29, (HFRAC - 16) - (s >> 1));
+}
+
+// log: ln w = 2 * atanh((u - 1) / (u + 1)) + k * ln2, u = w * 2**-k in
+// [1, 2); w <= 0 gives Q16.16 min
+template <class H>
+__device__ __forceinline__ int32_t log_q16(int32_t w_in, const H& h) {
+  const int32_t w = clamp_raw(w_in);
+  if (w <= 0) return RAW_MIN;
+  const int32_t k = ilog2(w) - 16;
+  const int32_t u29 = shl(shift_signed(w, k), HFRAC - 16);
+  const int32_t one29 = 1 << HFRAC;
+  int32_t x = wadd(u29, one29), z = 0;
+  hyper_vectoring(x, wsub(u29, one29), z, h);
+  const int32_t lnu = wadd(z, 1 << (HFRAC - 18)) >> (HFRAC - 17);
+  return wadd(lnu, k * LN2_Q16);
+}
+
+// circular vectoring: atan2(y, x) with `iterations` (<= 32) entries of
+// the atan table in the output angle format; pi in the same format
+struct AtanParams {
+  int32_t table[32];
+  int32_t iterations, pi;
+};
+
+__device__ __forceinline__ int32_t atan2_q(int32_t y_in, int32_t x_in, const AtanParams& p) {
+  const int32_t y0 = clamp_raw(y_in), x0 = clamp_raw(x_in);
+  if (x0 == 0 && y0 == 0) return 0;
+  const bool neg_x = x0 < 0;
+  int32_t x = neg_x ? -x0 : x0;
+  int32_t y = neg_x ? -y0 : y0;
+  const int32_t m = imax(x < 0 ? -x : x, y < 0 ? -y : y);
+  const int32_t s = 28 - ilog2(imax(m, 1));
+  x = shift_signed(x, -s);
+  y = shift_signed(y, -s);
+  int32_t z = 0;
+  for (int i = 0; i < p.iterations; ++i) {
+    const int32_t xs = sar(x, i), ys = sar(y, i), t = p.table[i];
+    if (y < 0) {
+      x = wsub(x, ys);
+      y = wadd(y, xs);
+      z = wsub(z, t);
+    } else {
+      x = wadd(x, ys);
+      y = wsub(y, xs);
+      z = wadd(z, t);
+    }
+  }
+  return neg_x ? wadd(z, y0 < 0 ? -p.pi : p.pi) : z;
+}
+
+// full-range Q16.16 num / den: both operands normalised to bit 29, the
+// quotient's exponent applied after; den == 0 saturates, 0 / 0 = 0
+__device__ __forceinline__ int32_t div_q16(int32_t num_in, int32_t den_in, int iterations) {
+  const int32_t num = clamp_raw(num_in), den = clamp_raw(den_in);
+  if (den_in == 0) return num == 0 ? 0 : (num > 0 ? RAW_MAX : RAW_MIN + 1);
+  const int32_t an = num < 0 ? -num : num, ad = den < 0 ? -den : den;
+  const int32_t bn = ilog2(imax(an, 1)), bd = ilog2(imax(ad, 1));
+  const int32_t nn = shift_signed(an, bn - HFRAC);
+  const int32_t dd = shift_signed(ad, bd - HFRAC);
+  const int32_t z = linear_div_q16(nn, imax(dd, 1), iterations);
+  const int32_t e = bn - bd;
+  const int32_t zr = round_shift_right(z, imax(-e, 0));
+  const int32_t sl = imax(e, 0);
+  const int32_t mag = zr <= sar(RAW_MAX, sl) ? shl(zr, sl) : RAW_MAX;
+  return (num < 0) != (den < 0) ? wneg(mag) : mag;
 }
 
 }  // namespace rq

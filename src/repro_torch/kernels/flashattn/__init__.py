@@ -1,5 +1,11 @@
 """K4: flash-attention forward (reference: ``src/repro/kernels/flashattn``)."""
 
-from repro_torch.kernels.flashattn.flashattn import NEG_INF, flash_attention, flash_attention_plain
+from repro_torch.kernels.flashattn.flashattn import (
+    NEG_INF,
+    bf16_close,
+    flash_attention,
+    flash_attention_plain,
+    p_rounding_case,
+)
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_plain"]
+__all__ = ["NEG_INF", "bf16_close", "flash_attention", "flash_attention_plain", "p_rounding_case"]

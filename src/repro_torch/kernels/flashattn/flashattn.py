@@ -5,14 +5,17 @@ flashattn.py::_kernel`` (launched by ``flash_attention_call``); the CUDA
 source is ``kernels/csrc/flashattn.cu``.  It computes the function the
 serving path runs, ``src/repro/models/attention.py::chunked_attention``
 with keys from position 0 and ``q_positions = arange(S)``: q pre-scaled
-by ``D**-0.5`` and rounded to q's dtype, f32 scores, -1e30 masks, the
+by ``D**-0.5`` and rounded to q's dtype, f32 scores, the optional score
+softcap ``cap * tanh(s / cap)`` (gemma2; in f32, before the mask, where
+``chunked_attention(cap=...)`` applies it), -1e30 masks, the
 running max / denominator / accumulator in f32 with ``p`` cast to v's
 dtype before P.V, and one normalisation by ``max(l, 1e-30)``.
 
 Padded keys are masked by ``k_pos < Skv``; the reference kernel's
 padding hazard (a non-causal call with ragged Skv turning causal,
 ``flashattn.py:114-120``) is not copied.  GQA maps head ``h`` to kv head
-``h // (H // KV)``; K and V are never repeated.
+``h // (H // KV)``; K and V are never repeated.  Head widths up to 256
+(deepseek-7b 128, gemma2-2b 256).
 
 On the H100 prefill attention is bound by operations (2*S*Skv*D per
 head for each product, about half of it under the causal mask); this
@@ -30,18 +33,21 @@ import torch
 
 from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_plain"]
+__all__ = ["NEG_INF", "bf16_close", "flash_attention", "flash_attention_plain", "p_rounding_case"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: repro_flash_attention(q, k, v, out, B, S, H, Skv, KV, D, Dv, scale,
-#:                       causal, window, dtype, stream)
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P)
+#:                       causal, window, softcap, dtype, stream)
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, ctypes.c_float,
+             _I, _P)
+#: the kernel's widest head (its shared-memory tiles)
+MAX_HEAD_DIM = 256
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                          chunk: int = 1024):
+                          softcap: Optional[float] = None, chunk: int = 1024):
     """The plain PyTorch version: ``chunked_attention`` with keys from
     position 0 and queries at ``arange(S)``.  q (B,S,H,Dq), k (B,Skv,KV,Dq),
     v (B,Skv,KV,Dv) -> (B,S,H,Dv) in q's dtype."""
@@ -69,6 +75,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int]
         k_blk = k[:, c * chunk:(c + 1) * chunk].to(torch.float32)
         v_blk = v[:, c * chunk:(c + 1) * chunk]
         s = torch.einsum("bskgd,bckd->bkgsc", qr, k_blk)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
         kp = c * chunk + torch.arange(chunk, device=q.device)[None, :]
         valid = kp < Skv
         if causal:
@@ -89,8 +97,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B,S,H,D), k (B,Skv,KV,D), v (B,Skv,KV,Dv) -> (B,S,H,Dv) through K4."""
+                    window: Optional[int] = None, softcap: Optional[float] = None) -> torch.Tensor:
+    """q (B,S,H,D), k (B,Skv,KV,D), v (B,Skv,KV,Dv) -> (B,S,H,Dv) through
+    K4; ``softcap`` caps the scores as ``chunked_attention(cap=...)``."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: 4-D (B, S, heads, dim) operands required")
     B, S, H, D = q.shape
@@ -105,20 +114,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: operands on several devices")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-    if D > 128 or Dv > 128:
-        raise ValueError(f"flash_attention: head dims up to 128 (D={D}, Dv={Dv})")
+    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dims up to {MAX_HEAD_DIM} (D={D}, Dv={Dv})")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap must be positive, got {softcap}")
     out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     if B * S * H == 0:
         return out
     rc = kernel_function("flashattn", "repro_flash_attention", _ARGTYPES)(
         ptr(q), ptr(k), ptr(v), ptr(out), B, S, H, Skv, KV, D, Dv, 1.0 / math.sqrt(D),
-        int(causal), int(window) if window else 0, _DTYPES[q.dtype], current_stream(q),
+        int(causal), int(window) if window else 0, float(softcap) if softcap else 0.0,
+        _DTYPES[q.dtype], current_stream(q),
     )
     check_launch("flashattn", rc, "flash_attention")
     flash_attention.launches += 1
@@ -126,3 +138,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
 
 flash_attention.launches = 0
+
+
+def bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """K4's bf16 tolerance against its plain version, scaled to the
+    output: 2**-6 of each element's magnitude plus the rms of its output
+    row (one query and head).  The kernel rounds p against the running
+    max of 64-key tiles, the plain version against that of 1024-key
+    chunks, so the two differ by up to a bf16 ulp of p per key before
+    the output's own bf16 rounding; the plain version run at both chunk
+    sizes on the CPU differed by at most 0.65 of this tolerance over ten
+    draws."""
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    tol = 2.0 ** -6 * (want.abs() + rms)
+    return bool(((got - want).abs() <= tol).all())
+
+
+def p_rounding_case(device="cpu"):
+    """bf16 (q, k, v) where rounding p to bf16 before P.V moves the
+    output far past :func:`bf16_close`: key 0 scores 0 (the row max from
+    the first tile on), the others score -0.6875 or -0.69140625, whose
+    p = 0.5028 and 0.5009 round to 0.5039 and 0.5, and their values
+    +-100 cancel.  A kernel that leaves p unrounded fails the tolerance
+    by about 10x."""
+    S, n, D = 64, 1000, 64
+    q = torch.zeros(1, S, 1, D)
+    q[..., 0] = math.sqrt(D)                       # q * D**-0.5 = e0 exactly
+    k = torch.zeros(1, n + 1, 1, D)
+    k[0, 1::2, 0, 0] = -0.6875
+    k[0, 2::2, 0, 0] = -0.69140625
+    v = torch.zeros(1, n + 1, 1, D)
+    v[0, 0] = 100.0
+    v[0, 1::2] = 100.0
+    v[0, 2::2] = -100.0
+    return tuple(t.to(device, torch.bfloat16) for t in (q, k, v))

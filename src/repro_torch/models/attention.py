@@ -3,11 +3,14 @@
 Reference: ``src/repro/models/attention.py`` — the GQA path only:
 ``attn_specs``, ``init_attn_cache``, ``reset_attn_cache_slot``,
 ``_prefill_cache`` and ``attention_forward`` for prefill and S == 1
-decode.  Prefill attention runs kernel K4 (``kernels.flashattn``, the
-function of ``chunked_attention``); ``decode_attention`` stays plain
-PyTorch, as the reference has no Pallas kernel for it.  MLA, the int8
-KV cache, segment decode (speculative verify) and score softcaps wait
-for later slices (ROADMAP.md queue 1 items 7, 9 and 10).
+decode, with sliding windows (rolling-buffer caches of ``window`` rows)
+and gemma2's attention-score softcap.  Prefill attention runs kernel K4
+(``kernels.flashattn``, the function of ``chunked_attention``, score
+softcap included); ``decode_attention`` stays plain PyTorch, as the
+reference has no Pallas kernel for it.  Score capping is f32 on every
+rung (the reference's policy).  MLA, the int8 KV cache and segment
+decode (speculative verify) wait for later slices (ROADMAP.md queue 1
+items 7, 9 and 10).
 
 Caches are updated IN PLACE (the reference returns new arrays): a
 prefill writes rows ``[0, S)`` of the cache it is given, a decode writes
@@ -69,9 +72,10 @@ def reset_attn_cache_slot(cache: dict, slot) -> dict:
     return cache
 
 
-def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None):
+def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None, cap=None):
     """Single-token decode: q (B,1,H,D) vs cache (B,L,KV,D); kp (B,L)
-    slot positions (-1 = unwritten).  Plain PyTorch, f32 scores."""
+    slot positions (-1 = unwritten).  Plain PyTorch, f32 scores, capped
+    as ``cap * tanh(s / cap)`` before the mask when ``cap`` is given."""
     B, _, H, Dq = q.shape
     KV = k_cache.shape[2]
     G = H // KV
@@ -81,6 +85,8 @@ def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None):
     scale = torch.tensor(1.0 / math.sqrt(Dq), dtype=q.dtype).item()
     qr = (q[:, 0] * scale).reshape(B, KV, G, Dq)
     s = torch.einsum("bkgd,blkd->bkgl", qr.to(torch.float32), k_cache.to(torch.float32))
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
     qp = q_position[:, None, None, None]
     kpb = kp[:, None, None, :]
     valid = (kpb >= 0) & (kpb <= qp)
@@ -118,8 +124,6 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
     """x (B,S,d) -> (out, cache).  ``cache=None``: no cache (positions
     must be ``arange(S)``); ``prefill``: K4 attention + rows [0, S)
     written; S == 1: decode against the cache."""
-    if cfg.attn_softcap is not None:
-        raise NotImplementedError("attention score softcap (gemma2): ROADMAP.md queue 1 item 7")
     B, S, _ = x.shape
     h = rms_norm(x, params["norm"], cfg.rms_eps)
     q = pdot(h, params["wq"], mode, wq=params.get("wq_q")).reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -131,7 +135,8 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
     k = apply_rope(k, sin, cos)
 
     if cache is None or prefill:
-        out = flash_attention(q, k, v.contiguous(), causal=True, window=layer.window)
+        out = flash_attention(q, k, v.contiguous(), causal=True, window=layer.window,
+                              softcap=cfg.attn_softcap)
         if prefill:
             cache = _prefill_cache(cache, k, v, positions, layer.window)
     elif S == 1:
@@ -150,7 +155,8 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
                 new = torch.where(keep, new, buf[lanes, slot])
             buf[lanes, slot] = new
         out = decode_attention(q, cache["k"], cache["v"], cache["pos"],
-                               q_position=positions[:, 0], window=layer.window)
+                               q_position=positions[:, 0], window=layer.window,
+                               cap=cfg.attn_softcap)
         if lane_mask is not None:
             G = cfg.n_heads // cfg.n_kv_heads
             own = v.repeat_interleave(G, dim=2).to(out.dtype)

@@ -10,14 +10,17 @@ runs on the port's kernels:
 * ``rope_tables`` FAST is the exact Q0.64 phase plus K3
   (``kernels.cordic.rope_sincos_q16``, both in one launch);
 * ``swiglu_mlp`` FAST on cached weights is K2 (``kernels.fused_mlp``)
-  followed by K1 for ``w_down``.
+  followed by K1 for ``w_down``; without cached weights it is K1 for the
+  gate and up products and ``psilu``;
+* ``ptanh`` / ``psigmoid`` / ``psilu`` / ``softcap`` FAST run the Q16.16
+  CORDIC ``tanh`` / ``sigmoid`` on K5 (``kernels.cordic.universal``).
 
 Float casts sit where the reference has them: FAST ``pdot`` returns
 bf16, the fused hidden stage is cast to bf16 before the down
 projection.  The EXACT rung is float32 ``torch.matmul`` with TF32 off
-(``compat``).  Training-only pieces (the STE backward of the int8 dots,
-``ptanh``/``psigmoid``/``softcap`` on the FAST rung) wait for later
-slices: the FAST sigmoid outside K2 is kernel K5.
+(``compat``).  The straight-through backward of the FAST dots and
+activations (training) waits for a later slice: the forwards here are
+what serving runs.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from repro_torch.core.qformat import Q16_16, from_fixed
 from repro_torch.core.quantization import quantize_pow2
 from repro_torch.kernels.cordic import rope_sincos_q16
+from repro_torch.kernels.cordic.ops import unary_op
 from repro_torch.kernels.fused_mlp import fused_swiglu
 from repro_torch.kernels.qmatmul import qmatmul
 
@@ -43,6 +47,10 @@ __all__ = [
     "FAST_MODES",
     "is_fast_mode",
     "snap_q8_8",
+    "ptanh",
+    "psigmoid",
+    "psilu",
+    "softcap",
     "rope_tables",
     "apply_rope",
     "swiglu_mlp",
@@ -144,6 +152,43 @@ def pdot(x: torch.Tensor, w: torch.Tensor, mode: str = "precise", wq=None) -> to
 
 
 # ---------------------------------------------------------------------------
+# precision-dispatched activations
+# ---------------------------------------------------------------------------
+
+
+def ptanh(x: torch.Tensor, mode: str = "precise") -> torch.Tensor:
+    """𝒟[tanh]: FAST -> Q16.16 CORDIC through K5; otherwise IEEE-754.
+    Inputs are expected in f32."""
+    if is_fast_mode(mode):
+        return unary_op(x, "tanh")
+    return torch.tanh(x)
+
+
+def psigmoid(x: torch.Tensor, mode: str = "precise") -> torch.Tensor:
+    """𝒟[sigmoid]: FAST -> Q16.16 CORDIC through K5."""
+    if is_fast_mode(mode):
+        return unary_op(x, "sigmoid")
+    return torch.sigmoid(x)
+
+
+def psilu(x: torch.Tensor, mode: str = "precise") -> torch.Tensor:
+    """𝒟[silu]: x * sigmoid(x) with the sigmoid precision-dispatched."""
+    if is_fast_mode(mode):
+        return x * unary_op(x, "sigmoid")
+    return torch.nn.functional.silu(x)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float], mode: str = "precise") -> torch.Tensor:
+    """Gemma-2 logit soft-capping ``cap * tanh(x / cap)`` in f32, with the
+    tanh precision-dispatched (attention-score capping stays PRECISE by
+    the reference's policy: ``kernels.flashattn`` and
+    ``attention.decode_attention`` cap in f32)."""
+    if cap is None:
+        return x
+    return (cap * ptanh(x.to(torch.float32) / cap, mode)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
 
@@ -205,20 +250,17 @@ def _fused_swiglu_fast(h: torch.Tensor, wgq, wuq) -> torch.Tensor:
 
 def swiglu_mlp(params: dict, x: torch.Tensor, mode: str = "precise", eps: float = 1e-5):
     """SwiGLU MLP with the per-op dispatch: FAST on cached weights is
-    K2 then K1; the float rungs are three matmuls and ``silu``."""
+    K2 then K1; otherwise three ``pdot`` products around ``psilu`` (FAST:
+    K1 and the CORDIC sigmoid on K5)."""
     h = rms_norm(x, params["norm"], eps)
-    if is_fast_mode(mode):
-        if "w_gate_q" not in params:
-            raise NotImplementedError(
-                "FAST swiglu_mlp without cached int8 weights needs the CORDIC sigmoid "
-                "kernel K5 (ROADMAP.md queue 2); attach_quantized_weights first")
+    if is_fast_mode(mode) and "w_gate_q" in params:
         if mode == "fast8":
             h = snap_q8_8(h)
         act = _fused_swiglu_fast(h, params["w_gate_q"], params["w_up_q"]).to(torch.bfloat16)
         return pdot(act, params["w_down"], mode, wq=params["w_down_q"])
     gate = pdot(h, params["w_gate"], mode)
     up = pdot(h, params["w_up"], mode)
-    act = torch.nn.functional.silu(gate.to(torch.float32)).to(up.dtype) * up
+    act = psilu(gate.to(torch.float32), mode).to(up.dtype) * up
     return pdot(act, params["w_down"], mode)
 
 

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.compat import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Spec, init_from_specs, rms_norm
+from repro_torch.models.layers import Spec, init_from_specs, rms_norm, softcap
 from repro_torch.models.transformer import init_period_cache, period_forward, period_specs
 
 __all__ = [
@@ -131,14 +131,16 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor, mode: str) -> torch.Tensor:
-    if cfg.final_softcap is not None:
-        raise NotImplementedError("final logit softcap (gemma2): ROADMAP.md queue 1 item 7")
+    """Last-position logits, soft-capped (gemma2) at the rung's
+    precision: the FAST cap is the CORDIC tanh on K5."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if mode == "exact":
-        return torch.matmul(x.to(torch.float32), head.to(torch.float32))
-    # f32 product of bf16-rounded operands
-    return torch.matmul(x.to(torch.bfloat16).to(torch.float32),
-                        head.to(torch.bfloat16).to(torch.float32))
+        logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
+    else:
+        # f32 product of bf16-rounded operands
+        logits = torch.matmul(x.to(torch.bfloat16).to(torch.float32),
+                              head.to(torch.bfloat16).to(torch.float32))
+    return softcap(logits, cfg.final_softcap, mode)
 
 
 def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None):

@@ -1,13 +1,21 @@
-"""Child process for tests/test_torch_model.py: runs the JAX reference
+"""Child process for the port's model tests: runs the JAX reference
 model with XLA's excess-precision optimisation switched off (the flag
 must be set before JAX starts, hence a process of its own), so every
 bf16 cast of the FAST rung rounds where the source says it does.
 
 Usage: XLA_FLAGS=--xla_allow_excess_precision=false \
-           python tests/_torch_jax_child.py OUT.npz
-Writes the smoke model's parameters and int8 weight payloads, and for
-each of the ``exact`` and ``fast`` modes the prefill and decode logits
-and the caches after each step."""
+           python tests/_torch_jax_child.py OUT.npz [ARCH]
+
+ARCH is ``deepseek_7b`` (default; tests/test_torch_model.py) or
+``gemma2_2b`` (tests/test_torch_gemma2.py).  Writes the smoke model's
+parameters and int8 weight payloads, and for each of the ``exact`` and
+``fast`` modes the prefill logits and caches, then the decode steps:
+
+* deepseek_7b: one decode of token 12 at position 11;
+* gemma2_2b: DECODE_STEPS greedy decode steps, each feeding the argmax
+  of the step before (``{mode}/tokens``), so the 8-row sliding-window
+  buffer wraps; logits of every step and the caches after the last.
+"""
 
 import os
 import sys
@@ -26,31 +34,47 @@ from repro.models.layers import attach_quantized_weights  # noqa: E402
 
 TOKENS = np.array([[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11]], np.int32)
 NEXT = np.array([[12]], np.int32)
+DECODE_STEPS = 6
 
 
-def main(out):
-    cfg = smoke("deepseek_7b")
+def _save(flat, key, leaves):
+    for k, v in leaves.items():
+        flat[f"{key}/{k}"] = np.asarray(v)
+
+
+def main(out, arch="deepseek_7b"):
+    cfg = smoke(arch)
     params = init_params(cfg, jax.random.PRNGKey(3))
     pa = attach_quantized_weights(params, QuantizedWeightCache())
     flat = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(pa)[0]:
         flat["param/" + "/".join(k.key for k in path)] = np.asarray(leaf)
     for mode in ("exact", "fast"):
+        prefill = jax.jit(lambda p, t, c: prefill_step(p, t, c, cfg, mode=mode))
+        decode = jax.jit(lambda p, t, q, c: decode_step(p, t, q, c, cfg, mode=mode))
         caches = init_caches(cfg, 1, 32, dtype=jnp.float32)
-        lp, c1 = jax.jit(lambda p, t, c: prefill_step(p, t, c, cfg, mode=mode))(
-            pa, jnp.asarray(TOKENS), caches)
-        flat[f"{mode}/c1"] = None
-        for k, v in c1["pos0"].items():
-            flat[f"{mode}/c1/{k}"] = np.asarray(v)
-        ld, c2 = jax.jit(lambda p, t, q, c: decode_step(p, t, q, c, cfg, mode=mode))(
-            pa, jnp.asarray(NEXT), jnp.asarray([TOKENS.shape[1]], jnp.int32), c1)
-        for k, v in c2["pos0"].items():
-            flat[f"{mode}/c2/{k}"] = np.asarray(v)
+        lp, c1 = prefill(pa, jnp.asarray(TOKENS), caches)
         flat[f"{mode}/logits_prefill"] = np.asarray(lp)
-        flat[f"{mode}/logits_decode"] = np.asarray(ld)
-        del flat[f"{mode}/c1"]
+        if arch == "deepseek_7b":
+            _save(flat, f"{mode}/c1", c1["pos0"])
+            ld, c2 = decode(pa, jnp.asarray(NEXT), jnp.asarray([TOKENS.shape[1]], jnp.int32), c1)
+            _save(flat, f"{mode}/c2", c2["pos0"])
+            flat[f"{mode}/logits_decode"] = np.asarray(ld)
+            continue
+        for pos in c1:
+            _save(flat, f"{mode}/c1/{pos}", c1[pos])
+        tokens, logits, c = [int(np.argmax(lp[0]))], [], c1
+        for i in range(DECODE_STEPS):
+            pos = jnp.asarray([TOKENS.shape[1] + i], jnp.int32)
+            ld, c = decode(pa, jnp.asarray([[tokens[-1]]], jnp.int32), pos, c)
+            logits.append(np.asarray(ld))
+            tokens.append(int(np.argmax(ld[0])))
+        for pos in c:
+            _save(flat, f"{mode}/c2/{pos}", c[pos])
+        flat[f"{mode}/logits_decode"] = np.stack(logits)
+        flat[f"{mode}/tokens"] = np.asarray(tokens, np.int32)
     np.savez(out, **flat)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])

@@ -4,21 +4,39 @@ the card.  Imports no JAX, so it runs on the H100 machine as is::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test needs the card (marker ``cuda``) and skips without one.
-Tolerances: integer outputs bit-exact; K2's f32 product at rtol 1e-6
-(one multiply order, each rounded once); attention at 2e-3 (f32) and
-2e-2 (bf16) — summation order and bf16 rounding of p."""
+Tolerances: integer outputs bit-exact (K1, K2's gate and sigmoid, K3,
+K5-K7); K2's f32 product at rtol 1e-6 (one multiply order, each rounded
+once); attention at 2e-3 (f32) and, in bf16, 2**-6 of each element's
+magnitude plus its output row's rms (``kernels.flashattn.bf16_close``:
+the kernel's 64-key tiles round p against other running maxima than the
+plain version's 1024-key chunks, and the output is rounded to bf16 once
+more).  ``kernels.flashattn.p_rounding_case`` fails that tolerance
+unless p is rounded to v's dtype before P.V (tests/test_torch_universal.py
+checks that the case discriminates, on the CPU)."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.cordic import (  # noqa: E402
+    UNARY_OPS,
+    atan2_q16,
+    atan2_q16_plain,
     cordic_sincos,
     cordic_sincos_plain,
+    div_q16,
+    div_q16_plain,
     rope_sincos_plain,
     rope_sincos_q16,
+    universal_unary,
+    universal_unary_plain,
 )
-from repro_torch.kernels.flashattn import flash_attention, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flashattn import (  # noqa: E402
+    bf16_close,
+    flash_attention,
+    flash_attention_plain,
+    p_rounding_case,
+)
 from repro_torch.kernels.fused_mlp import fused_swiglu, fused_swiglu_plain  # noqa: E402
 from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain  # noqa: E402
 
@@ -32,6 +50,26 @@ K4_CASES = [
     (1, 300, 32, 32, 128, 128, True, None, torch.bfloat16),  # deepseek-7b heads
     (1, 130, 32, 8, 128, 128, True, None, torch.float32),
 ]
+# gemma2-2b heads: (B, S, H, KV, D, window, softcap, dtype)
+K4_GEMMA_CASES = [
+    (1, 200, 8, 4, 256, None, 50.0, torch.float32),
+    (1, 200, 8, 4, 256, 64, 50.0, torch.bfloat16),
+    (1, 150, 4, 2, 256, 100, None, torch.float32),
+    (2, 90, 4, 4, 192, None, 5.0, torch.bfloat16),
+]
+EDGES = [0, 1, -1, 2, -2, 3, 65535, 65536, 65537, -65536, 32768, 2**31 - 1, -(2**31),
+         -(2**31) + 1, 2**31 - 2, 123456789, -123456789, 681391, -772244, 2**30, -(2**30)]
+
+
+def _words(n, device, seed=0):
+    """int32 words: the edges, tiny values, the whole int32 range and
+    the Q16.16 region most callers use."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.cat([
+        torch.tensor(EDGES, dtype=torch.int32), torch.arange(-40, 40, dtype=torch.int32),
+        torch.randint(-(2**31), 2**31 - 1, (n,), generator=g, dtype=torch.int32),
+        torch.randint(-40 * 65536, 40 * 65536, (n,), generator=g, dtype=torch.int32),
+    ]).to(device)
 
 
 @pytest.fixture
@@ -41,27 +79,35 @@ def cuda():
     return torch.device("cuda")
 
 
+# (M, K, N): small ragged shapes, then gemma2-2b's projections wq, wk/wv,
+# wo and w_down at decode and prefill sizes
+QMATMUL_SHAPES = [(m, 260, 132) for m in (1, 5, 70)] + [
+    (m, k, n) for m in (1, 4, 600) for (k, n) in ((2304, 2048), (2304, 1024), (2048, 2304),
+                                                   (9216, 2304))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 5, 70])
+@pytest.mark.parametrize("M,K,N", QMATMUL_SHAPES)
 @pytest.mark.parametrize("epilogue", ["float", "q16", "int32"])
-def test_cuda_qmatmul_matches_plain(cuda, M, epilogue):
+def test_cuda_qmatmul_matches_plain(cuda, M, K, N, epilogue):
     g = torch.Generator().manual_seed(M)
-    a = torch.randint(-128, 128, (M, 260), generator=g, dtype=torch.int8).to(cuda)
-    b = torch.randint(-128, 128, (260, 132), generator=g, dtype=torch.int8).to(cuda)
+    a = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8).to(cuda)
+    b = torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8).to(cuda)
     ea = torch.tensor([-20], dtype=torch.int32, device=cuda)
-    eb = torch.randint(-40, 30, (132,), generator=g, dtype=torch.int32).to(cuda)
+    eb = torch.randint(-40, 30, (N,), generator=g, dtype=torch.int32).to(cuda)
     assert torch.equal(qmatmul(a, b, ea, eb, epilogue), qmatmul_plain(a, b, ea, eb, epilogue))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 40])
-def test_cuda_fused_swiglu_matches_plain(cuda, M):
+@pytest.mark.parametrize("M,K,F", [(1, 256, 100), (40, 256, 100), (1, 2304, 9216),
+                                   (600, 2304, 9216)])
+def test_cuda_fused_swiglu_matches_plain(cuda, M, K, F):
     g = torch.Generator().manual_seed(M)
-    x = torch.randint(-128, 128, (M, 256), generator=g, dtype=torch.int8).to(cuda)
-    wg = torch.randint(-128, 128, (256, 100), generator=g, dtype=torch.int8).to(cuda)
-    wu = torch.randint(-128, 128, (256, 100), generator=g, dtype=torch.int8).to(cuda)
+    x = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8).to(cuda)
+    wg = torch.randint(-128, 128, (K, F), generator=g, dtype=torch.int8).to(cuda)
+    wu = torch.randint(-128, 128, (K, F), generator=g, dtype=torch.int8).to(cuda)
     ea = torch.tensor([-6], dtype=torch.int32, device=cuda)
-    e = torch.randint(-14, -2, (100,), generator=g, dtype=torch.int32).to(cuda)
+    e = torch.randint(-14, -2, (F,), generator=g, dtype=torch.int32).to(cuda)
     out, gate, sig = fused_swiglu(x, wg, wu, ea, e, e, return_parts=True)
     w_out, w_gate, w_sig = fused_swiglu_plain(x, wg, wu, ea, e, e, return_parts=True)
     assert torch.equal(gate, w_gate) and torch.equal(sig, w_sig)
@@ -87,5 +133,57 @@ def test_cuda_flash_matches_plain(cuda, case):
                for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, Dv)))
     got = flash_attention(q, k, v, causal=causal, window=window).float()
     want = flash_attention_plain(q, k, v, causal=causal, window=window).float()
-    tol = 2e-3 if dt == torch.float32 else 2e-2
-    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    else:
+        assert bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_GEMMA_CASES)
+def test_cuda_flash_gemma2_heads_match_plain(cuda, case):
+    B, S, H, KV, D, window, cap, dt = case
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (3 * torch.randn(shape, generator=g).to(cuda, dt)
+               for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    got = flash_attention(q, k, v, causal=True, window=window, softcap=cap).float()
+    want = flash_attention_plain(q, k, v, causal=True, window=window, softcap=cap).float()
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    else:
+        assert bf16_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rounds_p_before_pv(cuda):
+    q, k, v = p_rounding_case(cuda)
+    got = flash_attention(q, k, v, causal=False).float()
+    assert bf16_close(got, flash_attention_plain(q, k, v, causal=False).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(UNARY_OPS))
+@pytest.mark.parametrize("stages", [20, 13])
+def test_cuda_universal_unary_matches_plain(cuda, op, stages):
+    w = _words(20000, cuda, seed=stages)
+    assert torch.equal(universal_unary(w, op, stages), universal_unary_plain(w, op, stages))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac_bits", [16, 24])
+def test_cuda_atan2_matches_plain(cuda, frac_bits):
+    x = _words(20000, cuda, seed=frac_bits)
+    y = torch.roll(x, 7)
+    z = torch.zeros_like(x)
+    for a, b in ((y, x), (x, z), (z, x), (z, z)):
+        got = atan2_q16(a, b, iterations=frac_bits, frac_bits=frac_bits)
+        assert torch.equal(got, atan2_q16_plain(a, b, frac_bits, frac_bits))
+
+
+@pytest.mark.cuda
+def test_cuda_div_matches_plain(cuda):
+    num = _words(20000, cuda, seed=3)
+    den = torch.roll(num, 5)
+    z = torch.zeros_like(num)
+    for a, b in ((num, den), (num, z), (z, num), (z, z)):
+        assert torch.equal(div_q16(a, b), div_q16_plain(a, b))
