@@ -5,21 +5,29 @@ Usage (from the repository root, on a machine with the card)::
 
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --only kernels   # phases 1-2 only
+    python3 chip_smoke.py --only kernels --root OTHER_CHECKOUT
+                                           # another tree's kernels, same cases
 
 Phases, each printing JSON lines:
 
-1. device: ``nvidia-smi`` name, power limit and maximum SM clock, and the
+1. device: ``nvidia-smi`` name, power limit and maximum SM clock, the
    time to build the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together) and ptxas's registers
+   and spills, then the count of tensor-core instructions (``HMMA`` /
+   ``HGMMA``, ``IMMA`` / ``IGMMA``, from ``cuobjdump --dump-sass``) in
+   K4's bf16 kernel and in K1's and K2's prefill tiles — none fails;
 2. kernels: every kernel against its plain PyTorch version on the card —
    K1 qmatmul, K2 fused SwiGLU, K3 CORDIC sincos and K4 flash attention
    at deepseek-7b's and gemma2-2b's shapes (K1/K2 up to gemma2's
    4500-token prefill; K4 at head width 256, score softcap 50, window
-   4096, 4500 tokens) with a case that fails unless p is rounded to v's
-   dtype, and K5-K7 (the universal CORDIC family) on
+   4096, 4500 tokens) and at the edges of the tensor-core tiles (K1 at
+   M = 9..4500 with every epilogue and a ragged K, N; K4 bf16 at S = 17,
+   63, 65, 129, 1000 for D = 64, 128, 256), with a case that fails unless
+   p is rounded to v's dtype, and K5-K7 (the universal CORDIC family) on
    2**24 words plus an edge-value tensor — integer outputs bit-exact,
    float outputs within the stated tolerance — with kernel, plain and
-   library times and the card's bound for the same work;
+   library times (device time: see :func:`time_ms`) and the card's bound
+   for the same work;
 3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid on
    CUDA tensors of 2**24 elements at ``q16_16``, at ``f32`` and under
    ``PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24"})``; the
@@ -62,7 +70,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
@@ -93,15 +100,72 @@ def bound_ms(nbytes: float, ops: float, kind: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+#: tensor-core instructions in SASS: mma.sync / wgmma, float and integer
+TC_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA")
+#: library -> (kernel function, the instructions it must hold)
+TC_KERNELS = {"flashattn": ("flash_fwd_tc", ("HMMA", "HGMMA")),
+              "qmatmul": ("gemm_tc", ("IMMA", "IGMMA")),
+              "fused_mlp": ("gemm_tc", ("IMMA", "IGMMA"))}
+
+
+def sass_counts(lib: str, cuobjdump: str) -> dict:
+    """{kernel function: {instruction: count}} of the tensor-core
+    instructions in ``lib``'s SASS (``cuobjdump --dump-sass``)."""
+    import re
+
+    text = subprocess.run([cuobjdump, "--dump-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    counts, func = {}, None
+    op = re.compile(r"\b(" + "|".join(TC_OPS) + r")\b")
+    for line in text.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+            counts[func] = {k: 0 for k in TC_OPS}
+        elif func is not None:
+            for m in op.finditer(line):
+                counts[func][m.group(1)] += 1
+    return counts
+
+
+def tensor_core_phase(compat) -> dict:
+    """Counts the tensor-core instructions of the redesigned kernels in
+    the built libraries; fails if a kernel holds none."""
+    cuobjdump = os.path.join(os.path.dirname(compat._nvcc()), "cuobjdump")
+    out = {}
+    for lib, (kernel, ops) in TC_KERNELS.items():
+        counts = sass_counts(str(compat._lib_path(lib)), cuobjdump)
+        mine = {f: c for f, c in counts.items() if kernel in f}
+        require(bool(mine), f"lib{lib}.so holds no {kernel} kernel")
+        for f, c in mine.items():
+            require(sum(c[o] for o in ops) > 0, f"{f} in lib{lib}.so runs no {'/'.join(ops)}")
+        out[lib] = {"kernel": kernel, "functions": len(mine),
+                    **{o: sum(c[o] for c in mine.values()) for o in TC_OPS}}
+    emit({"phase": "device", "tensor_core_sass": out})
+    return out
+
+
+#: SM clock (Hz) for the spin that holds the card while launches queue;
+#: main() sets it from nvidia-smi
+SPIN_CLOCK_HZ = 1.98e9
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
+
+    The card first spins (``torch.cuda._sleep``) for twice the host time
+    of the warm-up calls times ``iters`` (at most 2 s), so the host has
+    queued every launch before the first one runs: the events time the
+    device, not the wrapper's Python."""
     import torch
 
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_CLOCK_HZ * min(2.0 * iters * host_s + 1e-3, 2.0)))
     start.record()
     for _ in range(iters):
         fn()
@@ -256,10 +320,27 @@ def check_kernels(gen):
         if epi == "float":
             keep("qmatmul", rec)
 
+    # the tensor-core tiles' edges (64 or 128 rows, 128 columns, 64-deep k
+    # steps; skinny below 9 rows) and a ragged K, N that takes the 4-byte
+    # copies
+    k1_edges = [(m, 2304, 2048) for m in (9, 16, 17, 65, 127, 129, 480, LONG_PROMPT)]
+    k1_edges += [(m, 4100, 2052) for m in (9, 129, 480)]
+    n_edges = 0
+    for m, k, n in k1_edges:
+        a, b = i8(m, k), i8(k, n)
+        ea, eb = i32(-12, -4, 1), i32(-30, 12, n)
+        for epi in ("float", "q16", "int32"):
+            got, want = qmatmul(a, b, ea, eb, epi), qmatmul_plain(a, b, ea, eb, epi)
+            require(torch.equal(got, want), f"qmatmul M={m} K={k} N={n} {epi} (tile edge) "
+                    "differs from its plain version")
+            n_edges += 1
+    emit({"phase": "kernels", "kernel": "qmatmul", "case": "tile edges", "cases": n_edges,
+          "shapes": [f"M={m} K={k} N={n}" for m, k, n in k1_edges], "bit_exact": True})
+
     # K2 -------------------------------------------------------------------
     # deepseek-7b (K=4096, F=11008) and gemma2-2b (K=2304, F=9216)
-    k2_cases = [(m, 4096, 11008) for m in (1, 512)]
-    k2_cases += [(m, 2304, 9216) for m in (1, 4, 512, LONG_PROMPT)]
+    k2_cases = [(m, 4096, 11008) for m in (1, 480, 512)]
+    k2_cases += [(m, 2304, 9216) for m in (1, 4, 9, 512, LONG_PROMPT)]
     for m, k, f in k2_cases:
         x, wg, wu = i8(m, k), i8(k, f), i8(k, f)
         ea, eg, eu = i32(-8, -4, 1), i32(-12, -6, f), i32(-12, -6, f)
@@ -358,6 +439,21 @@ def check_kernels(gen):
     for window in (None, 4096):
         for dt in (torch.float32, torch.bfloat16):
             k4_case(4500, 8, 4, 256, dt, window=window, cap=50.0, scale=2.0)
+    # the bf16 kernel's 128- (64 at D = 256 on small grids) query blocks and
+    # 64- (D <= 128) or 32-key (D = 256) tiles at and around their edges,
+    # 32 heads over 8 kv heads
+    worst = 0.0
+    for s in (17, 63, 65, 129, 1000):
+        for d in (64, 128, 256):
+            q, k, v = (torch.randn(1, s, hh, d, generator=gen).to(dev, torch.bfloat16)
+                       for hh in (32, 8, 8))
+            got = flash_attention(q, k, v).float()
+            want = flash_attention_plain(q, k, v).float()
+            require(bf16_close(got, want), f"flash_attention bf16 S={s} D={d} 32/8 heads "
+                    "(tile edge) outside 2**-6 * (|want| + row rms)")
+            worst = max(worst, (got - want).abs().max().item())
+    emit({"phase": "kernels", "kernel": "flash_attention", "case": "bf16 tile edges S in "
+          "(17, 63, 65, 129, 1000) x D in (64, 128, 256), 32/8 heads", "max_abs_err": worst})
     # p must be rounded to v's dtype before P.V
     q, k, v = p_rounding_case(dev)
     got = flash_attention(q, k, v, causal=False).float()
@@ -811,7 +907,13 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels",), default=None,
                     help="stop after the kernel phase")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--root", default=None,
+                    help="build and check the port of another checkout with this script's "
+                         "cases and timing (old/new comparisons in one call); the "
+                         "tensor-core check then is not made")
     args = ap.parse_args(argv)
+    root = os.path.abspath(args.root) if args.root else ROOT
+    sys.path.insert(0, os.path.join(root, "src"))
 
     try:
         import torch
@@ -833,6 +935,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     PEAK_OPS["int32"] = N_SMS * INT32_LANES * clock_mhz * 1e6
+    global SPIN_CLOCK_HZ
+    SPIN_CLOCK_HZ = clock_mhz * 1e6
     t0 = time.perf_counter()
     build = compat.build_kernels()
     build_s = time.perf_counter() - t0
@@ -846,6 +950,11 @@ def main(argv=None) -> int:
           "int32_ops_per_s": PEAK_OPS["int32"], "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": round(build_s, 3),
           "build_per_source_s": {k: round(v, 3) for k, v in build.items()}, "ptxas": ptxas})
+
+    if root == ROOT:
+        tensor_core_phase(compat)
+    else:
+        emit({"phase": "device", "root": root, "tensor_core_sass": "not checked"})
 
     gen = torch.Generator().manual_seed(args.seed)
     torch.cuda.reset_peak_memory_stats()

@@ -18,9 +18,15 @@ padding hazard (a non-causal call with ragged Skv turning causal,
 (deepseek-7b 128, gemma2-2b 256).
 
 On the H100 prefill attention is bound by operations (2*S*Skv*D per
-head for each product, about half of it under the causal mask); this
-first kernel runs its products on CUDA cores — tensor-core tiles are
-later work.
+head for each product, about half of it under the causal mask).  The
+bf16 path (the ``q16_16`` rung) runs both products on the tensor cores,
+as the TPU kernel runs them on its matrix unit: ``mma.sync`` bf16 tiles
+with f32 accumulators, bf16 Q/K/V tiles in shared memory fed by a
+two-stage ``cp.async`` ring, scores, softcap, masks and the online
+softmax in registers, and p rounded to bf16 in registers as the A
+operand of P.V; key tiles that the causal mask or the sliding window
+hide from a whole query block are skipped.  The f32 path (the exact
+rung) stays on CUDA-core FMAs, without TF32.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import torch
 
 from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
 
-__all__ = ["NEG_INF", "bf16_close", "flash_attention", "flash_attention_plain", "p_rounding_case"]
+__all__ = ["KEY_TILE", "NEG_INF", "bf16_close", "flash_attention", "flash_attention_plain",
+           "p_rounding_case"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +51,9 @@ _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
              _I, _P)
 #: the kernel's widest head (its shared-memory tiles)
 MAX_HEAD_DIM = 256
+#: keys per tile of the bf16 kernel by head-width class: head widths up to
+#: 128 take 64-key tiles, wider heads (to 256) 32-key tiles
+KEY_TILE = {128: 64, 256: 32}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -144,11 +154,12 @@ def bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
     """K4's bf16 tolerance against its plain version, scaled to the
     output: 2**-6 of each element's magnitude plus the rms of its output
     row (one query and head).  The kernel rounds p against the running
-    max of 64-key tiles, the plain version against that of 1024-key
-    chunks, so the two differ by up to a bf16 ulp of p per key before
-    the output's own bf16 rounding; the plain version run at both chunk
-    sizes on the CPU differed by at most 0.65 of this tolerance over ten
-    draws."""
+    max of its key tiles (:data:`KEY_TILE`: 64 keys at D <= 128, 32 at
+    D = 256), the plain version against that of 1024-key chunks, so the
+    two differ by up to a bf16 ulp of p per key before the output's own
+    bf16 rounding; the plain version run at both chunk sizes on the CPU
+    differed by at most 0.65 of this tolerance over ten draws
+    (``tests/test_torch_kernels.py`` holds the kernel's tiles to it)."""
     rms = want.pow(2).mean(-1, keepdim=True).sqrt()
     tol = 2.0 ** -6 * (want.abs() + rms)
     return bool(((got - want).abs() <= tol).all())

@@ -3,7 +3,7 @@ correction.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/qmatmul/qmatmul.py::
 _kernel`` (launched by ``qmatmul_kernel_call``); the CUDA source is
-``kernels/csrc/qmatmul.cu`` on the dp4a tiles of ``int8_gemm.cuh``.
+``kernels/csrc/qmatmul.cu`` on the shapes of ``int8_gemm.cuh``.
 
 Contract: ``a_q`` (M, K) int8 x ``b_q`` (K, N) int8 accumulated exactly
 in int32, then one correction with ``e = ea + eb[n]``:
@@ -15,8 +15,14 @@ in int32, then one correction with ``e = ea + eb[n]``:
 * ``"int32"``: the raw accumulator.
 
 On the H100 the decode shapes (M <= 8) are bound by reading ``b_q``
-once (bytes), prefill shapes by int8 operations; the kernel picks a
-skinny matrix-vector shape or a 64x64 tiled shape from M.
+once (bytes): a skinny dp4a matrix-vector shape streams it.  Prefill
+shapes (M > 8) are bound by int8 operations and run on the tensor cores,
+as the TPU kernel runs them on its matrix unit: ``mma.sync`` s8 tiles of
+64 or 128 rows by 128 columns, K streamed through a four-stage
+``cp.async`` ring, and ``b_q`` kept in the reference (K, N) layout —
+the tensor cores' k-major fragments come out of its row-major tile by a
+permuted ``ldmatrix .trans``.  Integer sums are exact in any order, so
+both shapes are bit-exact against :func:`qmatmul_plain`.
 
 :func:`qmatmul` is the wrapper: the plain PyTorch version for a CPU
 tensor, the kernel for a CUDA tensor (or it raises).

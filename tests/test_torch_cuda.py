@@ -8,8 +8,8 @@ Tolerances: integer outputs bit-exact (K1, K2's gate and sigmoid, K3,
 K5-K7); K2's f32 product at rtol 1e-6 (one multiply order, each rounded
 once); attention at 2e-3 (f32) and, in bf16, 2**-6 of each element's
 magnitude plus its output row's rms (``kernels.flashattn.bf16_close``:
-the kernel's 64-key tiles round p against other running maxima than the
-plain version's 1024-key chunks, and the output is rounded to bf16 once
+the kernel's 64-key (D <= 128) or 32-key (D = 256) tiles round p
+against other running maxima than the plain version's 1024-key chunks, and the output is rounded to bf16 once
 more).  ``kernels.flashattn.p_rounding_case`` fails that tolerance
 unless p is rounded to v's dtype before P.V (tests/test_torch_universal.py
 checks that the case discriminates, on the CPU)."""
@@ -49,6 +49,7 @@ K4_CASES = [
     (1, 48, 2, 2, 16, 16, True, 8, torch.float32),        # sliding window
     (1, 300, 32, 32, 128, 128, True, None, torch.bfloat16),  # deepseek-7b heads
     (1, 130, 32, 8, 128, 128, True, None, torch.float32),
+    (1, 77, 4, 2, 36, 20, True, None, torch.bfloat16),    # widths off the 16-byte loads
 ]
 # gemma2-2b heads: (B, S, H, KV, D, window, softcap, dtype)
 K4_GEMMA_CASES = [
@@ -100,7 +101,8 @@ def test_cuda_qmatmul_matches_plain(cuda, M, K, N, epilogue):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,F", [(1, 256, 100), (40, 256, 100), (1, 2304, 9216),
-                                   (600, 2304, 9216)])
+                                   (600, 2304, 9216), (9, 2304, 9216), (480, 4096, 11008),
+                                   (4500, 2304, 9216)])
 def test_cuda_fused_swiglu_matches_plain(cuda, M, K, F):
     g = torch.Generator().manual_seed(M)
     x = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8).to(cuda)
@@ -112,6 +114,25 @@ def test_cuda_fused_swiglu_matches_plain(cuda, M, K, F):
     w_out, w_gate, w_sig = fused_swiglu_plain(x, wg, wu, ea, e, e, return_parts=True)
     assert torch.equal(gate, w_gate) and torch.equal(sig, w_sig)
     torch.testing.assert_close(out, w_out, rtol=1e-6, atol=0)
+
+
+# the edges of the tensor-core tiles (64 or 128 rows, 128 / 64 columns,
+# 64-deep k steps, skinny below 9 rows) and a ragged K, N that takes the
+# 4-byte copies (neither a multiple of 16)
+QMATMUL_TILE_EDGES = [(m, 2304, 2048) for m in (9, 16, 17, 65, 127, 129, 480, 4500)] + [
+    (m, 4100, 2052) for m in (9, 129, 480)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", QMATMUL_TILE_EDGES)
+@pytest.mark.parametrize("epilogue", ["float", "q16", "int32"])
+def test_cuda_qmatmul_tile_edges_match_plain(cuda, M, K, N, epilogue):
+    g = torch.Generator().manual_seed(M + K)
+    a = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8).to(cuda)
+    b = torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8).to(cuda)
+    ea = torch.tensor([-20], dtype=torch.int32, device=cuda)
+    eb = torch.randint(-40, 30, (N,), generator=g, dtype=torch.int32).to(cuda)
+    assert torch.equal(qmatmul(a, b, ea, eb, epilogue), qmatmul_plain(a, b, ea, eb, epilogue))
 
 
 @pytest.mark.cuda
@@ -148,6 +169,36 @@ def test_cuda_flash_gemma2_heads_match_plain(cuda, case):
                for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
     got = flash_attention(q, k, v, causal=True, window=window, softcap=cap).float()
     want = flash_attention_plain(q, k, v, causal=True, window=window, softcap=cap).float()
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    else:
+        assert bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [17, 63, 65, 129, 1000])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_cuda_flash_bf16_tile_edges_match_plain(cuda, S, D):
+    """The bf16 kernel's 128-query blocks (64 at D = 256 on small grids)
+    and 64-key (D <= 128) or 32-key (D = 256) tiles at and around their
+    edges, 32 heads over 8 kv heads."""
+    g = torch.Generator().manual_seed(S * D)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+               for shape in ((1, S, 32, D), (1, S, 8, D), (1, S, 8, D)))
+    got = flash_attention(q, k, v).float()
+    assert bf16_close(got, flash_attention_plain(q, k, v).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_flash_window_past_whole_tiles(cuda, dt):
+    """gemma2-2b's local layer at 4500 tokens: softcap 50, window 4096,
+    so whole key tiles fall out of the window of every query block."""
+    g = torch.Generator().manual_seed(4500)
+    q, k, v = (2 * torch.randn(shape, generator=g).to(cuda, dt)
+               for shape in ((1, 4500, 8, 256), (1, 4500, 4, 256), (1, 4500, 4, 256)))
+    got = flash_attention(q, k, v, window=4096, softcap=50.0).float()
+    want = flash_attention_plain(q, k, v, window=4096, softcap=50.0).float()
     if dt == torch.float32:
         torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
     else:

@@ -42,7 +42,13 @@ from repro_torch.kernels.cordic import (  # noqa: E402
     rope_sincos_plain,
     rope_sincos_q16,
 )
-from repro_torch.kernels.flashattn import flash_attention, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flashattn import (  # noqa: E402
+    KEY_TILE,
+    bf16_close,
+    flash_attention,
+    flash_attention_plain,
+    p_rounding_case,
+)
 from repro_torch.kernels.fused_mlp import fused_swiglu, fused_swiglu_plain  # noqa: E402
 from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain  # noqa: E402
 
@@ -291,6 +297,35 @@ def test_flash_noncausal_ragged_is_not_forced_causal():
     ref = attention_ref(fold(q), fold(k), fold(v), scale=0.25, causal=False)
     np.testing.assert_allclose(got, ref.reshape(1, 2, 37, 16).transpose(0, 2, 1, 3),
                                atol=2e-3, rtol=2e-3)
+
+
+def test_key_tile_matches_the_kernel():
+    """KEY_TILE is the bf16 kernel's key tile per head-width class
+    (flashattn.cu: TcTile)."""
+    src = (CSRC / "flashattn.cu").read_text()
+    small, big = re.search(r"BKV = WD <= 128 \? (\d+) : (\d+);", src).groups()
+    assert KEY_TILE == {128: int(small), 256: int(big)}
+
+
+@pytest.mark.parametrize("width_class", sorted(KEY_TILE))
+def test_bf16_tolerance_holds_at_the_kernel_key_tile(width_class):
+    """The bf16 kernel rounds p against the running max of its key tiles;
+    the plain version at that chunk stays within bf16_close of its
+    1024-key chunks (seeded draws: causal, a sliding window, a softcap;
+    and p_rounding_case).  Small heads: the tile, not the width, sets the
+    rounding points."""
+    chunk = KEY_TILE[width_class]
+    rng = np.random.default_rng(width_class)
+    for draw in range(4):
+        sc = 1.0 + draw
+        q, k, v = (_t(sc * rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+                   for shape in ((1, 200, 2, 32), (1, 200, 1, 32), (1, 200, 1, 32)))
+        for kw in ({}, {"window": 48}, {"softcap": 5.0}):
+            got = flash_attention_plain(q, k, v, chunk=chunk, **kw).float()
+            assert bf16_close(got, flash_attention_plain(q, k, v, **kw).float()), (draw, kw)
+    q, k, v = p_rounding_case()
+    got = flash_attention_plain(q, k, v, causal=False, chunk=chunk).float()
+    assert bf16_close(got, flash_attention_plain(q, k, v, causal=False).float())
 
 
 def test_flash_wrapper_checks_inputs():
