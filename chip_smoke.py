@@ -15,19 +15,22 @@ Phases, each printing JSON lines:
    (one ``nvcc`` per source, all started together) and ptxas's registers
    and spills, then the count of tensor-core instructions (``HMMA`` /
    ``HGMMA``, ``IMMA`` / ``IGMMA``, from ``cuobjdump --dump-sass``) in
-   K4's bf16 kernel and in K1's and K2's prefill tiles — none fails;
+   K4's bf16 kernel and in K1's and K2's prefill tiles — none fails — and
+   in K4's f32 kernel, the exact rung, with its ``FFMA`` and ``LDS.128``
+   counts — any fails;
 2. kernels: every kernel against its plain PyTorch version on the card —
    K1 qmatmul, K2 fused SwiGLU, K3 CORDIC sincos and K4 flash attention
    at deepseek-7b's and gemma2-2b's shapes (K1/K2 up to gemma2's
    4500-token prefill; K4 at head width 256, score softcap 50, window
    4096, 4500 tokens) and at the edges of the tensor-core tiles (K1 at
-   M = 9..4500 with every epilogue and a ragged K, N; K4 bf16 at S = 17,
-   63, 65, 129, 1000 for D = 64, 128, 256), with a case that fails unless
-   p is rounded to v's dtype, and K5-K7 (the universal CORDIC family) on
-   2**24 words plus an edge-value tensor — integer outputs bit-exact,
-   float outputs within the stated tolerance — with kernel, plain and
-   library times (device time: see :func:`time_ms`) and the card's bound
-   for the same work;
+   M = 9..4500 with every epilogue and a ragged K, N; K4 bf16 and f32 at
+   S = 17, 63, 65, 129, 1000 for D = 64, 128, 256, f32 also at widths off
+   the 16-byte loads, a ragged non-causal Skv and windows past whole
+   tiles), with a case that fails unless p is rounded to v's dtype, and
+   K5-K7 (the universal CORDIC family) on 2**24 words plus an edge-value
+   tensor — integer outputs bit-exact, float outputs within the stated
+   tolerance — with kernel, plain and library times (device time: see
+   :func:`time_ms`) and the card's bound for the same work;
 3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid on
    CUDA tensors of 2**24 elements at ``q16_16``, at ``f32`` and under
    ``PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24"})``; the
@@ -102,45 +105,61 @@ def bound_ms(nbytes: float, ops: float, kind: str):
 
 #: tensor-core instructions in SASS: mma.sync / wgmma, float and integer
 TC_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA")
+#: SASS instructions counted per kernel function: the tensor-core ones,
+#: and FFMA and 128-bit shared-memory loads (the f32 attention kernel's
+#: products and their operands)
+SASS_OPS = {**{o: rf"\b{o}\b" for o in TC_OPS}, "FFMA": r"\bFFMA",
+            "LDS.128": r"\bLDS[.\w]*\.128\b"}
 #: library -> (kernel function, the instructions it must hold)
 TC_KERNELS = {"flashattn": ("flash_fwd_tc", ("HMMA", "HGMMA")),
               "qmatmul": ("gemm_tc", ("IMMA", "IGMMA")),
               "fused_mlp": ("gemm_tc", ("IMMA", "IGMMA"))}
+#: the exact rung's kernel: it must hold no tensor-core instruction (no TF32)
+EXACT_KERNEL = ("flashattn", "flash_fwd_f32")
 
 
 def sass_counts(lib: str, cuobjdump: str) -> dict:
-    """{kernel function: {instruction: count}} of the tensor-core
-    instructions in ``lib``'s SASS (``cuobjdump --dump-sass``)."""
+    """{kernel function: {instruction: count}} of :data:`SASS_OPS` in
+    ``lib``'s SASS (``cuobjdump --dump-sass``)."""
     import re
 
     text = subprocess.run([cuobjdump, "--dump-sass", lib], capture_output=True, text=True,
                           check=True).stdout
     counts, func = {}, None
-    op = re.compile(r"\b(" + "|".join(TC_OPS) + r")\b")
+    ops = {name: re.compile(rx) for name, rx in SASS_OPS.items()}
     for line in text.splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
-            counts[func] = {k: 0 for k in TC_OPS}
+            counts[func] = {k: 0 for k in SASS_OPS}
         elif func is not None:
-            for m in op.finditer(line):
-                counts[func][m.group(1)] += 1
+            for name, rx in ops.items():
+                counts[func][name] += len(rx.findall(line))
     return counts
 
 
-def tensor_core_phase(compat) -> dict:
+def sass_phase(compat) -> dict:
     """Counts the tensor-core instructions of the redesigned kernels in
-    the built libraries; fails if a kernel holds none."""
+    the built libraries, and the exact rung's FFMA and LDS.128; fails if a
+    tensor-core kernel holds none, or the exact rung's kernel any."""
     cuobjdump = os.path.join(os.path.dirname(compat._nvcc()), "cuobjdump")
-    out = {}
+    out, libs = {}, {}
     for lib, (kernel, ops) in TC_KERNELS.items():
-        counts = sass_counts(str(compat._lib_path(lib)), cuobjdump)
+        libs[lib] = counts = sass_counts(str(compat._lib_path(lib)), cuobjdump)
         mine = {f: c for f, c in counts.items() if kernel in f}
         require(bool(mine), f"lib{lib}.so holds no {kernel} kernel")
         for f, c in mine.items():
             require(sum(c[o] for o in ops) > 0, f"{f} in lib{lib}.so runs no {'/'.join(ops)}")
         out[lib] = {"kernel": kernel, "functions": len(mine),
                     **{o: sum(c[o] for c in mine.values()) for o in TC_OPS}}
-    emit({"phase": "device", "tensor_core_sass": out})
+    lib, kernel = EXACT_KERNEL
+    exact = {f: c for f, c in libs[lib].items() if kernel in f}
+    require(bool(exact), f"lib{lib}.so holds no {kernel} kernel")
+    for f, c in exact.items():
+        require(sum(c[o] for o in TC_OPS) == 0, f"{f} (the exact rung) runs tensor-core "
+                f"instructions: {c}")
+    rung = {"kernel": kernel, "functions": len(exact),
+            **{o: sum(c[o] for c in exact.values()) for o in SASS_OPS}}
+    emit({"phase": "device", "tensor_core_sass": out, "exact_rung_sass": rung})
     return out
 
 
@@ -433,7 +452,9 @@ def check_kernels(gen):
     for s in (17, 300, 1000):
         for dt in (torch.float32, torch.bfloat16):
             k4_case(s, 32, 32, 128, dt)
-    k4_case(300, 32, 8, 128, torch.bfloat16)
+    k4_case(480, 32, 32, 128, torch.float32)   # deepseek-7b's TTFT prompt
+    for dt in (torch.float32, torch.bfloat16):
+        k4_case(300, 32, 8, 128, dt)
     # gemma2-2b prefill: 8 heads of 256 over 4 kv heads, scores capped at
     # 50, the local layers' window of 4096 crossed by a 4500-token prompt
     for window in (None, 4096):
@@ -454,6 +475,29 @@ def check_kernels(gen):
             worst = max(worst, (got - want).abs().max().item())
     emit({"phase": "kernels", "kernel": "flash_attention", "case": "bf16 tile edges S in "
           "(17, 63, 65, 129, 1000) x D in (64, 128, 256), 32/8 heads", "max_abs_err": worst})
+    # the f32 kernel's 64- or 128-query blocks and 128-key tiles at and
+    # around their edges, 32 heads over 8 (S = 2000 fills the card with
+    # 128-query blocks, S <= 129 takes 64), widths off the 16-byte loads
+    # (D = 37, Dv = 22 takes the 4-byte path), a non-causal call with a
+    # ragged Skv and windows past whole tiles; abs 2e-3 as every f32 case
+    f32_edges = [dict(s=s, d=d) for s in (17, 63, 65, 129, 1000) for d in (64, 128, 256)]
+    f32_edges += [dict(s=2000, d=128), dict(s=77, d=36, dv=20), dict(s=77, d=37, dv=22),
+                  dict(s=70, skv=130, d=128, causal=False), dict(s=1000, d=128, window=130),
+                  dict(s=1000, d=256, window=130, cap=50.0)]
+    worst = 0.0
+    for e in f32_edges:
+        s, d, dv, skv = e["s"], e["d"], e.get("dv", e["d"]), e.get("skv", e["s"])
+        q = torch.randn(1, s, 32, d, generator=gen).to(dev)
+        k = torch.randn(1, skv, 8, d, generator=gen).to(dev)
+        v = torch.randn(1, skv, 8, dv, generator=gen).to(dev)
+        kw = dict(causal=e.get("causal", True), window=e.get("window"), softcap=e.get("cap"))
+        got, want = flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw)
+        err = (got - want).abs().max().item()
+        require(math.isfinite(err) and err <= 2e-3, f"flash_attention f32 {e} 32/8 heads (tile "
+                f"edge): max err {err} outside abs 2e-3")
+        worst = max(worst, err)
+    emit({"phase": "kernels", "kernel": "flash_attention", "case": "f32 tile edges",
+          "cases": f32_edges, "tolerance": "abs 2e-3", "max_abs_err": worst})
     # p must be rounded to v's dtype before P.V
     q, k, v = p_rounding_case(dev)
     got = flash_attention(q, k, v, causal=False).float()
@@ -910,7 +954,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=None,
                     help="build and check the port of another checkout with this script's "
                          "cases and timing (old/new comparisons in one call); the "
-                         "tensor-core check then is not made")
+                         "SASS checks then are not made")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root) if args.root else ROOT
     sys.path.insert(0, os.path.join(root, "src"))
@@ -952,7 +996,7 @@ def main(argv=None) -> int:
           "build_per_source_s": {k: round(v, 3) for k, v in build.items()}, "ptxas": ptxas})
 
     if root == ROOT:
-        tensor_core_phase(compat)
+        sass_phase(compat)
     else:
         emit({"phase": "device", "root": root, "tensor_core_sass": "not checked"})
 

@@ -53,17 +53,39 @@
 // tile that ran first would be wiped by corr = 0 at the row's first
 // valid key (s - m is exactly 0 there, so p = 1 as in the reference).
 //
-// f32 (the exact rung), flash_fwd_f32: CUDA-core FMAs, no TF32.  One
-// 256-thread block per (64 queries, batch*head), 64-key tiles of K and V
-// in shared memory (f32, rows padded by one word so column walks hit
-// distinct banks), staged one row per warp with the lanes along the
-// head.  Thread (ty, tx) of a 16x16 grid owns query rows 4*ty..4*ty+3
-// and, for S = Q.K^T, keys tx + 16*j (j < 4); for O += P.V the value
-// columns tx + 16*c (c < WD/16).  At D = 256 the tiles need 214 KB of
-// shared memory (one block per SM).  Row max and row sum reduce over
-// the 16 threads of a row group with warp shuffles; P goes through
-// shared memory between the two products.  Key tiles past the causal
-// diagonal of the whole query block are skipped.
+// f32 (the exact rung), flash_fwd_f32: CUDA-core FFMA only, no TF32 and
+// no tensor-core instruction (chip_smoke.py checks its SASS).  Both
+// products are register-blocked outer products, as in an SGEMM: warp w
+// owns R query rows of the block, each lane an RL-row strip of them, a
+// block of scores and a block of output columns (F32Plan).  Q (scaled
+// once) and K sit in shared memory d-major, so one LDS.128 gives a lane
+// four rows of Q^T or four keys of K^T; V is row-major, so one LDS.128
+// gives four columns.  Lanes of a row group read the same Q^T (and P^T)
+// words and the row groups the same K^T (and V) words.  The card moves
+// one 128-byte shared-memory wavefront for four warp-wide FFMA a cycle,
+// so what bounds a product is FFMA per float a lane loads: at D <= 128 on
+// full grids (F32Full) a lane runs 8 x 8 scores and 8 x 8 output columns,
+// 4 FFMA a float in both products (before: 2 for scalar loads); on short
+// grids (F32Short) 8 x 4 (2.7); at D = 256 (F32Wide) 4 x 8 scores (2.7)
+// and 4 x 16 columns (3.2), as its 64 x 256 output tile and 227 KB allow.
+// K^T is transposed on its way in by 4-byte cp.async, 8 lanes along d,
+// into rows padded by 4 floats so the 32 stores hit 32 banks (Q^T
+// likewise, scaled in place once its copies land); V comes by 16-byte
+// cp.async.  Loads overlap the products: a 128-key tile runs in phases
+// (S over K^T, then P.V over V; at D = 256 each in two halves), each
+// reading one of two shared panels while the next phase's operand loads
+// into the other, one barrier a phase.  P goes through a key-major P^T
+// private to its warp, 32 keys at a time, and comes back as LDS.128.  The
+// row max reduces over the LKG lanes of a row group by shuffles; the
+// denominator stays a per-lane partial until the end.  Scores, the
+// softcap (tanhf), masks, corr = exp(m_old - m_new), p = exp(s - m)
+// (MUFU.EX2 of (s - m) * log2 e: relative error ~2**-22, exactly 1 where
+// s = m = -1e30), acc scaled by corr before P.V accumulates into it, and
+// the final division are all f32, as in the reference.  Grid order and
+// skipped key tiles are the bf16 path's (below): longest query blocks of
+// all heads first, key tiles outside the causal diagonal or the window of
+// the whole block never loaded, tiles masked for all rows of a warp (and
+// P.V pieces past all its rows or past Skv) skipped by it.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -74,156 +96,397 @@ constexpr int MAXD = 256;
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
+// shared by both paths
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2**x (MUFU.EX2; relative error ~2**-22, 0 for x = -inf or below -126)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; src_bytes < 16 zero-fills the rest
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+// 4 bytes global -> shared; src_bytes = 0 writes 0
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64, BKV = 64, THREADS = 256, WARPS = THREADS / 32;
-constexpr int RPT = 4;              // query rows per thread
-constexpr int KPT = BKV / 16;       // keys per thread in S
+// The f32 kernel's tile plan: head-width class WD, R query rows per warp,
+// RL rows per lane, BKV keys per tile, P^T handed over in pieces of PK
+// keys, K^T and V each cut into NS slices.  Warp w of NW owns query rows
+// [w R, w R + R) of the block in both products; lane = ry * LKG + kx owns
+// rows RL ry .. RL ry + RL - 1 of those, in S the keys 4 LKG c + 4 kx + e
+// (c < KC) and in O the value columns 4 LKG c + 4 kx + e (c < CC), e < 4.
+// Q^T is d-major with rows padded by 4 floats.  A tile runs in 2 NS
+// phases, each reading one of two shared panels while the next phase's
+// operand loads into the other: S over the d-slices of K^T (DS rows each,
+// d-major, padded like Q^T), then P.V over the key slices of V (row-major,
+// BKV / NS rows each); a panel holds either.  P^T is key-major, PK keys at
+// a time, one per warp.  Every expression here is plain integer
+// arithmetic (the CPU tests evaluate them).
+template <int WD_, int R_, int RL_, int BKV_, int PK_, int NS_>
+struct F32Plan {
+  static constexpr int WD = WD_;
+  static constexpr int R = R_;
+  static constexpr int RL = RL_;
+  static constexpr int BKV = BKV_;
+  static constexpr int PK = PK_;
+  static constexpr int NS = NS_;
+  static constexpr int NW = 8;
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int BQ = R * NW;
+  static constexpr int LRG = R / RL;
+  static constexpr int LKG = 32 / LRG;
+  static constexpr int KC = BKV / (4 * LKG);
+  static constexpr int CC = WD / (4 * LKG);
+  static constexpr int DS = WD / NS;
+  static constexpr int QS = BQ + 4;
+  static constexpr int KS = BKV + 4;
+  static constexpr int PR = R + 4;
+  static constexpr int PANEL = DS * KS;
+  static constexpr int SMEM = 4 * (WD * QS + 2 * PANEL + NW * PK * PR);
+};
 
-// reductions over the 16 threads (tx) sharing a row group inside a warp
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// 16 rows a warp, 8 x 8 scores and 8 x 8 output columns a lane, 128-key
+// tiles: D <= 128 on grids of more than one wave of these blocks
+using F32Full = F32Plan<128, 16, 8, 128, 32, 1>;
+// 8 rows a warp (64 queries a block, so short prompts spread over twice
+// the blocks), 8 x 4 scores and 8 x 4 output columns a lane: D <= 128 on
+// small grids (deepseek's prompts to ~500 tokens)
+using F32Short = F32Plan<128, 8, 8, 128, 32, 1>;
+// D = 256: a lane's 64 accumulators hold a 4 x 16 strip of the 64 x 256
+// output tile beside 4 x 8 scores of a 128-key tile, whose K^T and V (256
+// KB) pass through the two panels in halves
+using F32Wide = F32Plan<256, 8, 4, 128, 32, 2>;
 
-// WD: the head-width class (D, Dv <= WD); CPT value columns per thread
-template <int WD>
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32(const float* __restrict__ q,
-                                                         const float* __restrict__ k,
-                                                         const float* __restrict__ v,
-                                                         float* __restrict__ out, int S, int H,
-                                                         int Skv, int KV, int D, int Dv,
-                                                         float scale, int causal, int window,
-                                                         float softcap) {
-  constexpr int CPT = WD / 16;
-  extern __shared__ float smem[];
-  const int DP = D + 1, VP = Dv + 1, PP = BKV + 1;
-  float* Qs = smem;               // BQ x DP
-  float* Ks = Qs + BQ * DP;       // BKV x DP
-  float* Vs = Ks + BKV * DP;      // BKV x VP
-  float* Ps = Vs + BKV * VP;      // BQ x PP
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16, lane = t % 32, warp = t / 32;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KV);
-
-  // tiles are staged row by row, one warp per row, lanes along the head
-  for (int r = warp; r < BQ; r += WARPS) {
-    const int qi = q0 + r;
-    const size_t row = (static_cast<size_t>(b) * S + qi) * H + h;
-    for (int d = lane; d < D; d += 32) Qs[r * DP + d] = qi < S ? q[row * D + d] * scale : 0.f;
+// rows [r0, r0 + ROWS) of a row-major f32 operand (row stride `stride`,
+// `width` wide), columns d in [d_lo, d_hi) (d_lo a multiple of 8), into a
+// d-major tile (row d - d_lo at `dst` + (d - d_lo) * ts) by 4-byte
+// cp.async; rows >= n_rows and d >= width read as 0.  A warp moves 8 d x
+// 4 rows per step, lanes along d (32 contiguous bytes of a row): with
+// rows padded by 4 floats the 32 stores hit 32 distinct banks.
+template <int ROWS, int NW>
+__device__ __forceinline__ void load_t(float* dst, int ts, const float* __restrict__ src,
+                                       size_t stride, int r0, int n_rows, int d_lo, int d_hi,
+                                       int width) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int jb = warp; jb < ROWS / 4; jb += NW) {
+    const int j = 4 * jb + lane / 8, row = r0 + j;
+    const bool row_live = row < n_rows;
+    const float* s = src + (row_live ? static_cast<size_t>(row) * stride : 0);
+    for (int d = d_lo + lane % 8; d < d_hi; d += 8) {
+      const bool live = row_live && d < width;
+      cp_async4(dst + (d - d_lo) * ts + j, live ? s + d : src, live ? 4 : 0);
+    }
   }
+}
 
-  float m[RPT], l[RPT], acc[RPT][CPT];
+// multiplies the elements of a d-major tile that this thread's load_t
+// copied (d < dp) by `scale`, once its copies have landed: q * D**-0.5
+// rounded to f32 once, as in the reference
+template <int ROWS, int NW>
+__device__ __forceinline__ void scale_t(float* dst, int ts, int dp, float scale) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int jb = warp; jb < ROWS / 4; jb += NW)
+    for (int d = lane % 8; d < dp; d += 8) dst[d * ts + 4 * jb + lane / 8] *= scale;
+}
+
+// rows [r0, r0 + ROWS) of v into a row-major tile WD wide; columns >= width
+// and rows >= n_rows read as 0.  vec: rows start 16-byte aligned and
+// width % 4 == 0, so 16-byte copies; else 4-byte ones.
+template <int ROWS, int WD, int NW>
+__device__ __forceinline__ void load_v(float* dst, const float* __restrict__ src, size_t stride,
+                                       int r0, int n_rows, int width, bool vec) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int j = warp; j < ROWS; j += NW) {
+    const int row = r0 + j;
+    const bool row_live = row < n_rows;
+    const float* s = src + (row_live ? static_cast<size_t>(row) * stride : 0);
+    if (vec) {
+      for (int c = 4 * lane; c < WD; c += 128) {
+        const bool live = row_live && c < width;
+        cp_async16(dst + j * WD + c, live ? s + c : src, live ? 16 : 0);
+      }
+    } else {
+      for (int c = lane; c < WD; c += 32) {
+        const bool live = row_live && c < width;
+        cp_async4(dst + j * WD + c, live ? s + c : src, live ? 4 : 0);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float f4(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+template <class P, bool CAP>
+__global__ void __launch_bounds__(P::THREADS, 1) flash_fwd_f32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int S, int H, int Skv, int KV, int D, int Dv, float scale, int causal,
+    int window, float softcap, int vec) {
+  constexpr int R = P::R, RL = P::RL, NW = P::NW, BQ = P::BQ, BKV = P::BKV, PK = P::PK;
+  constexpr int LKG = P::LKG, KC = P::KC, CC = P::CC, WD = P::WD, QS = P::QS, KS = P::KS;
+  constexpr int PR = P::PR, NS = P::NS, DS = P::DS, PANEL = P::PANEL, VR = BKV / NS;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* Qt = f32_smem;          // WD x QS: Q^T, scaled
+  float* panels = Qt + WD * QS;  // 2 x PANEL: a d-slice of K^T or a key slice of V
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, ry = lane / LKG, kx = lane % LKG;
+  float* Pt = panels + 2 * PANEL + warp * PK * PR;  // PK x PR: the warp's P^T piece
+  // the last query blocks have the most keys under the causal mask: the
+  // grid starts them first, for every head, before any shorter block
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const size_t kv_stride = static_cast<size_t>(KV) * D, v_stride = static_cast<size_t>(KV) * Dv;
+  const float* kb = k + static_cast<size_t>(b) * Skv * kv_stride + static_cast<size_t>(kvh) * D;
+  const float* vb = v + static_cast<size_t>(b) * Skv * v_stride + static_cast<size_t>(kvh) * Dv;
+  const int dp = (D + 7) / 8 * 8;
+
+  // key tiles that hold a valid key for some row of the block
+  int kv_begin = 0, kv_end = Skv;
+  if (causal) kv_end = min(Skv, min(q0 + BQ, S));
+  if (window > 0) kv_begin = max(0, q0 - window + 1) / BKV * BKV;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+
+  // the operand of phase ph of tile `it` into panel ph % 2: for ph < NS the
+  // d-slice ph of K^T, else the key slice ph - NS of V
+  const auto load_phase = [&](int it, int ph) {
+    float* dst = panels + (ph % 2) * PANEL;
+    const int k0 = kv_begin + it * BKV;
+    if (ph < NS)
+      load_t<BKV, NW>(dst, KS, kb, kv_stride, k0, Skv, ph * DS, min(dp, ph * DS + DS), D);
+    else
+      load_v<VR, WD, NW>(dst, vb, v_stride, k0 + (ph - NS) * VR, Skv, Dv, vec);
+  };
+  load_t<BQ, NW>(Qt, QS, q + (static_cast<size_t>(b) * S * H + h) * D,
+                 static_cast<size_t>(H) * D, q0, S, 0, dp, D);
+  if (n_tiles > 0) load_phase(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  scale_t<BQ, NW>(Qt, QS, dp, scale);
+
+  float acc[RL][4 * CC], m[RL], l[RL];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
+  for (int r = 0; r < RL; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < 4 * CC; ++c) acc[r][c] = 0.f;
   }
+  const int qa = q0 + warp * R;     // the warp's first query row
+  const int qr = qa + RL * ry;      // the lane's first query row
+  const float* qt = Qt + warp * R + RL * ry;
+  const float* pt = Pt + RL * ry;
 
-  int kv_end = Skv;  // keys past the block's last query are masked for every row
-  if (causal) kv_end = min(Skv, min(q0 + BQ, S));
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();  // the previous tile is consumed (and Qs is written)
-    for (int j = warp; j < BKV; j += WARPS) {
-      const int kj = k0 + j;
-      const size_t row = (static_cast<size_t>(b) * Skv + kj) * KV + kvh;
-      for (int d = lane; d < D; d += 32) Ks[j * DP + d] = kj < Skv ? k[row * D + d] : 0.f;
-      for (int d = lane; d < Dv; d += 32) Vs[j * VP + d] = kj < Skv ? v[row * Dv + d] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for rows 4ty..4ty+3, keys tx + 16j
-    float s[RPT][KPT];
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kv_begin + it * BKV;
+    // a tile masked for all R rows of this warp adds nothing to them; rows
+    // past S are never stored
+    const bool skip = qa >= S || (causal && k0 > qa + R - 1) ||
+                      (window > 0 && k0 + BKV - 1 <= qa - window);
+    float s[RL][4 * KC];  // S = Q K^T, then p in place
 #pragma unroll
-    for (int r = 0; r < RPT; ++r)
+    for (int r = 0; r < RL; ++r)
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) s[r][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[KPT];
+      for (int j = 0; j < 4 * KC; ++j) s[r][j] = 0.f;
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) qv[r] = Qs[(ty * RPT + r) * DP + d];
+    for (int ph = 0; ph < 2 * NS; ++ph) {
+      cp_async_wait<0>();
+      // this phase's panel visible to every warp; every warp is done with
+      // the other panel (the previous phase), which the next load refills
+      __syncthreads();
+      if (ph + 1 < 2 * NS)
+        load_phase(it, ph + 1);
+      else if (it + 1 < n_tiles)
+        load_phase(it + 1, 0);
+      cp_async_commit();
+      if (skip) continue;
+      const float* pn = panels + (ph % 2) * PANEL + 4 * kx;
+      if (ph < NS) {
+        for (int d0 = ph * DS; d0 < min(dp, ph * DS + DS); d0 += 8) {
+          const float* qd = qt + d0 * QS;
+          const float* kd = pn + (d0 - ph * DS) * KS;
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
+          for (int dd = 0; dd < 8; ++dd) {
+            // outer product of RL / 4 4-row columns of Q^T and KC 4-key
+            // columns of K^T, one LDS.128 each
+            float4 a[RL / 4], bk[KC];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r)
+            for (int i = 0; i < RL / 4; ++i)
+              a[i] = *reinterpret_cast<const float4*>(qd + dd * QS + 4 * i);
 #pragma unroll
-        for (int j = 0; j < KPT; ++j) s[r][j] = fmaf(qv[r], kv[j], s[r][j]);
-    }
-
-    float corr[RPT];
+            for (int c = 0; c < KC; ++c)
+              bk[c] = *reinterpret_cast<const float4*>(kd + dd * KS + 4 * LKG * c);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int qi = q0 + ty * RPT + r;
-      float mx = NEG_INF;
+            for (int r = 0; r < RL; ++r)
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        if (softcap > 0.f) s[r][j] = softcap * tanhf(s[r][j] / softcap);
-        bool valid = kp < Skv;
-        if (causal) valid = valid && kp <= qi;
-        if (window > 0) valid = valid && kp > qi - window;
-        s[r][j] = valid ? s[r][j] : NEG_INF;
-        mx = fmaxf(mx, s[r][j]);
+              for (int j = 0; j < 4 * KC; ++j)
+                s[r][j] = fmaf(f4(a[r / 4], r % 4), f4(bk[j / 4], j % 4), s[r][j]);
+          }
+        }
+        if (ph < NS - 1) continue;
+        // softcap, masks and the online softmax; a row's keys live in the
+        // LKG lanes of its row group
+        const bool masked = k0 + BKV > Skv || (causal && k0 + BKV - 1 > qa) ||
+                            (window > 0 && k0 <= qa + R - 1 - window);
+#pragma unroll
+        for (int r = 0; r < RL; ++r) {
+          const int qi = qr + r;
+          float mx = NEG_INF;
+#pragma unroll
+          for (int j = 0; j < 4 * KC; ++j) {
+            float x = s[r][j];
+            if (CAP) x = softcap * tanhf(x / softcap);
+            if (masked) {
+              const int kp = k0 + 4 * LKG * (j / 4) + 4 * kx + j % 4;
+              bool valid = kp < Skv;
+              if (causal) valid = valid && kp <= qi;
+              if (window > 0) valid = valid && kp > qi - window;
+              x = valid ? x : NEG_INF;
+            }
+            s[r][j] = x;
+            mx = fmaxf(mx, x);
+          }
+#pragma unroll
+          for (int o = LKG / 2; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_new = fmaxf(m[r], mx);
+          const float corr = fast_exp2((m[r] - m_new) * LOG2E);
+          m[r] = m_new;
+          // s - m is exactly 0 where both are -1e30 (a row that has seen
+          // only masked keys), so p = 1 there, as in the reference
+          float psum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4 * KC; ++j) {
+            s[r][j] = fast_exp2((s[r][j] - m_new) * LOG2E);
+            psum += s[r][j];
+          }
+          l[r] = l[r] * corr + psum;
+#pragma unroll
+          for (int c = 0; c < 4 * CC; ++c) acc[r][c] *= corr;
+        }
+      } else {
+        for (int pc = 0; pc < VR / PK; ++pc) {
+          // keys past Skv, or past every row of the warp under the causal
+          // mask, have p = 0 for its rows (each has a valid key by then) or
+          // v = 0: they add exactly nothing
+          const int key0 = (ph - NS) * VR + pc * PK;  // in the tile
+          if (k0 + key0 >= Skv || (causal && k0 + key0 > qa + R - 1)) break;
+          // the lanes' p of keys [key0, key0 + PK) into P^T, one RL-row
+          // column per key
+#pragma unroll
+          for (int c = 0; c < KC; ++c) {
+            const int key = 4 * LKG * c + 4 * kx - key0;
+            if (key >= 0 && key < PK) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+#pragma unroll
+                for (int i = 0; i < RL / 4; ++i)
+                  *reinterpret_cast<float4*>(Pt + (key + e) * PR + RL * ry + 4 * i) =
+                      make_float4(s[4 * i][4 * c + e], s[4 * i + 1][4 * c + e],
+                                  s[4 * i + 2][4 * c + e], s[4 * i + 3][4 * c + e]);
+            }
+          }
+          __syncwarp();
+          // O += P V: outer products of RL / 4 4-row columns of P^T and CC
+          // 4-column pieces of a V row per key
+          const float* vp = pn + pc * PK * WD;
+#pragma unroll 8
+          for (int j = 0; j < PK; ++j) {
+            float4 p[RL / 4], vv[CC];
+#pragma unroll
+            for (int i = 0; i < RL / 4; ++i)
+              p[i] = *reinterpret_cast<const float4*>(pt + j * PR + 4 * i);
+#pragma unroll
+            for (int c = 0; c < CC; ++c)
+              vv[c] = *reinterpret_cast<const float4*>(vp + j * WD + 4 * LKG * c);
+#pragma unroll
+            for (int r = 0; r < RL; ++r)
+#pragma unroll
+              for (int c = 0; c < 4 * CC; ++c)
+                acc[r][c] = fmaf(f4(p[r / 4], r % 4), f4(vv[c / 4], c % 4), acc[r][c]);
+          }
+          __syncwarp();  // the piece is read before the next one overwrites it
+        }
       }
-      const float m_new = fmaxf(m[r], group_max(mx));
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float p = expf(s[r][j] - m_new);
-        psum += p;
-        Ps[(ty * RPT + r) * PP + tx + 16 * j] = p;
-      }
-      corr[r] = expf(m[r] - m_new);
-      l[r] = l[r] * corr[r] + group_sum(psum);
-      m[r] = m_new;
     }
-    __syncthreads();
-
-    // O = O * corr + P V for rows 4ty..4ty+3, value columns tx + 16c
-    float pv[RPT][CPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) pv[r][c] = 0.f;
-    for (int j = 0; j < BKV; ++j) {
-      float pj[RPT], vj[CPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) pj[r] = Ps[(ty * RPT + r) * PP + j];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int d = tx + 16 * c;
-        vj[c] = d < Dv ? Vs[j * VP + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) pv[r][c] = fmaf(pj[r], vj[c], pv[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[r][c] = acc[r][c] * corr[r] + pv[r][c];
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int qi = q0 + ty * RPT + r;
+  for (int r = 0; r < RL; ++r) {
+#pragma unroll
+    for (int o = LKG / 2; o > 0; o >>= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+    const int qi = qr + r;
     if (qi >= S) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    float* dst = out + ((static_cast<size_t>(b) * S + qi) * H + h) * Dv;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int d = tx + 16 * c;
-      if (d < Dv) out[((static_cast<size_t>(b) * S + qi) * H + h) * Dv + d] = acc[r][c] / den;
+    for (int c = 0; c < CC; ++c) {
+      const int col = 4 * LKG * c + 4 * kx;
+      const float4 x = make_float4(acc[r][4 * c] / den, acc[r][4 * c + 1] / den,
+                                   acc[r][4 * c + 2] / den, acc[r][4 * c + 3] / den);
+      if (vec && col < Dv) {
+        *reinterpret_cast<float4*>(dst + col) = x;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < Dv) dst[col + e] = f4(x, e);
+      }
     }
+  }
+}
+
+template <class P, bool CAP>
+int launch_f32_plan(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+                    int Skv, int KV, int D, int Dv, float scale, int causal, int window,
+                    float softcap, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<P, CAP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = Dv % 4 == 0 && aligned(v) && aligned(out);
+  dim3 grid(B * H, (S + P::BQ - 1) / P::BQ);
+  flash_fwd_f32<P, CAP><<<grid, P::THREADS, P::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), S, H, Skv, KV, D, Dv, scale, causal, window, softcap, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int WD, bool CAP>
+int launch_f32_cap(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+                   int Skv, int KV, int D, int Dv, float scale, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  if constexpr (WD <= 128) {
+    const long blocks = static_cast<long>((S + F32Full::BQ - 1) / F32Full::BQ) * B * H;
+    if (blocks > 132)
+      return launch_f32_plan<F32Full, CAP>(q, k, v, out, B, S, H, Skv, KV, D, Dv, scale, causal,
+                                           window, softcap, stream);
+    return launch_f32_plan<F32Short, CAP>(q, k, v, out, B, S, H, Skv, KV, D, Dv, scale, causal,
+                                          window, softcap, stream);
+  } else {
+    return launch_f32_plan<F32Wide, CAP>(q, k, v, out, B, S, H, Skv, KV, D, Dv, scale, causal,
+                                         window, softcap, stream);
   }
 }
 
@@ -231,16 +494,11 @@ template <int WD>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                int Skv, int KV, int D, int Dv, float scale, int causal, int window, float softcap,
                cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BQ * (D + 1) + BKV * (D + 1) + BKV * (Dv + 1) + BQ * (BKV + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<WD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_f32<WD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), S, H, Skv, KV, D, Dv, scale, causal, window, softcap);
-  return static_cast<int>(cudaGetLastError());
+  if (softcap > 0.f)
+    return launch_f32_cap<WD, true>(q, k, v, out, B, S, H, Skv, KV, D, Dv, scale, causal, window,
+                                    softcap, stream);
+  return launch_f32_cap<WD, false>(q, k, v, out, B, S, H, Skv, KV, D, Dv, scale, causal, window,
+                                   softcap, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -259,14 +517,6 @@ struct TcTile {
 // K and V tiles in flight: the next one loads while the current one is
 // multiplied (a third stage measured no faster)
 constexpr int KV_STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2**x (MUFU.EX2; relative error ~2**-22, 0 for x = -inf or below -126)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 // tanh(y) = (1 - e) / (1 + e) with e = exp(-2|y|) in (0, 1]: no overflow,
 // absolute error ~2**-22
 __device__ __forceinline__ float fast_tanh(float y) {
@@ -274,19 +524,6 @@ __device__ __forceinline__ float fast_tanh(float y) {
   return copysignf(__fdividef(1.f - e, 1.f + e), y);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; src_bytes < 16 zero-fills the rest
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

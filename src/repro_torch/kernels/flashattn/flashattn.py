@@ -26,7 +26,12 @@ two-stage ``cp.async`` ring, scores, softcap, masks and the online
 softmax in registers, and p rounded to bf16 in registers as the A
 operand of P.V; key tiles that the causal mask or the sliding window
 hide from a whole query block are skipped.  The f32 path (the exact
-rung) stays on CUDA-core FMAs, without TF32.
+rung) stays on CUDA-core FFMA, without TF32 or any tensor-core
+instruction: both products are register-blocked outer products as in an
+SGEMM, each lane a 4- or 8-row strip of a warp's 8 or 16 query rows,
+with Q and K d-major and V row-major in shared memory so that one
+128-bit load gives four operands, and K and V loads by ``cp.async``
+overlapping the products.
 """
 
 from __future__ import annotations

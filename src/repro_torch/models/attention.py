@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.compat import resolve_device
 from repro_torch.kernels.flashattn import NEG_INF, flash_attention
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import Spec, apply_rope, attn_norm_spec, pdot, rms_norm, rope_tables
@@ -53,7 +54,8 @@ def attn_specs(cfg: ModelConfig) -> dict:
 
 
 def init_attn_cache(cfg: ModelConfig, layer: LayerSpec, batch: int, max_len: int,
-                    dtype=torch.float32, device="cpu") -> dict:
+                    dtype=torch.float32, device=None) -> dict:
+    device = resolve_device(device)
     L = min(layer.window, max_len) if layer.window else max_len
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     return {

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.compat import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import mlp_specs, swiglu_mlp
@@ -36,7 +37,8 @@ def period_specs(cfg: ModelConfig) -> dict:
 
 
 def init_period_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
-                      device="cpu") -> dict:
+                      device=None) -> dict:
+    device = resolve_device(device)
     out = {}
     for i, spec in enumerate(cfg.period):
         _check_layer(spec)

@@ -190,6 +190,42 @@ def test_cuda_flash_bf16_tile_edges_match_plain(cuda, S, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [17, 63, 65, 129, 1000])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_cuda_flash_f32_tile_edges_match_plain(cuda, S, D):
+    """The f32 kernel's 64- or 128-query blocks (8 or 16 rows a warp) and
+    128-key tiles at and around their edges, 32 heads over 8."""
+    g = torch.Generator().manual_seed(S * D + 1)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda)
+               for shape in ((1, S, 32, D), (1, S, 8, D), (1, S, 8, D)))
+    got = flash_attention(q, k, v)
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v), atol=2e-3, rtol=2e-3)
+
+
+# (S, Skv, D, Dv, causal, window, softcap), 32 heads over 8
+K4_F32_EDGES = [
+    (2000, 2000, 128, 128, True, None, None),   # 128-query blocks fill the card
+    (77, 77, 36, 20, True, None, None),         # off the bf16 kernel's 16-byte loads
+    (77, 77, 37, 22, True, None, None),         # off the f32 kernel's: 4-byte copies
+    (70, 130, 128, 128, False, None, None),     # non-causal, ragged Skv > S
+    (1000, 1000, 128, 128, True, 130, None),    # window past whole tiles
+    (1000, 1000, 256, 256, True, 130, 50.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_F32_EDGES)
+def test_cuda_flash_f32_edges_match_plain(cuda, case):
+    S, Skv, D, Dv, causal, window, cap = case
+    g = torch.Generator().manual_seed(S + Skv + D)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda)
+               for shape in ((1, S, 32, D), (1, Skv, 8, D), (1, Skv, 8, Dv)))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, **kw), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_cuda_flash_window_past_whole_tiles(cuda, dt):
     """gemma2-2b's local layer at 4500 tokens: softcap 50, window 4096,

@@ -307,6 +307,73 @@ def test_key_tile_matches_the_kernel():
     assert KEY_TILE == {128: int(small), 256: int(big)}
 
 
+def _f32_plans():
+    """The f32 kernel's tile plans as the source instantiates them
+    (flashattn.cu: ``F32Plan<WD, R, RL, BKV, PK, NS>``), each field
+    evaluated from the source: {(WD, R, RL, BKV, PK, NS): {name: value}}."""
+    src = (CSRC / "flashattn.cu").read_text()
+    body = re.search(r"struct F32Plan \{(.*?)\n\};", src, re.S).group(1)
+    fields = re.findall(r"static constexpr int (\w+) = ([^;]+);", body)
+    plans = {}
+    for args in set(re.findall(r"F32Plan<(\d+), (\d+), (\d+), (\d+), (\d+), (\d+)>", src)):
+        env = dict(zip(("WD_", "R_", "RL_", "BKV_", "PK_", "NS_"), map(int, args)))
+        for name, expr in fields:
+            env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+        plans[tuple(map(int, args))] = env
+    return plans
+
+
+F32_PLANS = [(128, 16, 8, 128, 32, 1), (128, 8, 8, 128, 32, 1), (256, 8, 4, 128, 32, 2)]
+
+
+@pytest.mark.parametrize("plan", F32_PLANS)
+def test_f32_tile_plan_fits_and_owns_every_element_once(plan):
+    """The f32 kernel's shared memory fits a block's 232,448 bytes; its
+    thread -> (query, key) map of S and thread -> (query, column) map of
+    O cover a block's tiles exactly once, each warp within its own rows;
+    every piece of a warp's P^T is written exactly once; a panel holds a
+    d-slice of K^T and a key slice of V, and the slices, pieces and
+    per-lane chunks tile the head width and the key tile; the d-major
+    tiles' padded rows take the transposing stores (8 lanes along d, 4
+    along rows) on 32 distinct banks, and every 128-bit access is 16-byte
+    aligned."""
+    plans = _f32_plans()
+    assert sorted(plans) == sorted(F32_PLANS)
+    p = plans[plan]
+    assert (p["WD"], p["R"], p["RL"], p["BKV"], p["PK"], p["NS"]) == plan
+    assert p["SMEM"] <= 232_448
+    assert p["SMEM"] == 4 * (p["WD"] * p["QS"] + 2 * p["PANEL"] + p["NW"] * p["PK"] * p["PR"])
+    R, RL, LKG, BQ, BKV, PK, WD, NS = (p[k] for k in ("R", "RL", "LKG", "BQ", "BKV", "PK", "WD",
+                                                       "NS"))
+    assert p["PANEL"] >= max(p["DS"] * p["KS"], BKV // NS * WD)
+    assert p["DS"] * NS == WD and p["DS"] % 8 == 0 and (BKV // NS) % PK == 0
+    assert p["LRG"] * LKG == 32 and p["KC"] >= 1 and p["CC"] >= 1 and BKV % PK == 0
+    assert 4 * LKG * p["KC"] == BKV and 4 * LKG * p["CC"] == WD
+    warp, lane, r, c, e = np.ix_(np.arange(p["NW"]), np.arange(32), np.arange(RL),
+                                 np.arange(max(p["KC"], p["CC"])), np.arange(4))
+    ry, kx = lane // LKG, lane % LKG
+    shape = np.broadcast_shapes(warp.shape, lane.shape, r.shape, c.shape, e.shape)
+    rows = np.broadcast_to(warp * R + RL * ry + r, shape)
+    cols = np.broadcast_to(4 * LKG * c + 4 * kx + e, shape)
+    for n_chunks, width in ((p["KC"], BKV), (p["CC"], WD)):
+        own = np.zeros((BQ, width), dtype=int)
+        np.add.at(own, (rows[:, :, :, :n_chunks], cols[:, :, :, :n_chunks]), 1)
+        assert (own == 1).all()
+    assert ((rows // R) == warp).all()
+    keys, local = cols[:, :, :, :p["KC"]], rows[:, :, :, :p["KC"]] % R
+    for pc in range(BKV // PK):
+        mine = (keys >= pc * PK) & (keys < (pc + 1) * PK)
+        for w in range(p["NW"]):
+            piece = np.zeros((PK, R), dtype=int)
+            np.add.at(piece, (keys[w][mine[w]] - pc * PK, local[w][mine[w]]), 1)
+            assert (piece == 1).all()
+    for stride in (p["QS"], p["KS"], p["PR"], WD):
+        assert stride % 4 == 0
+    lane = np.arange(32)
+    for stride in (p["QS"], p["KS"]):
+        assert len(set((((lane % 8) * stride + lane // 8) % 32).tolist())) == 32
+
+
 @pytest.mark.parametrize("width_class", sorted(KEY_TILE))
 def test_bf16_tolerance_holds_at_the_kernel_key_tile(width_class):
     """The bf16 kernel rounds p against the running max of its key tiles;

@@ -47,6 +47,7 @@ def _no_card():
 def _entry_points():
     from repro_torch import models
     from repro_torch.convert import params_from_jax
+    from repro_torch.models import attention, transformer
     from repro_torch.runtime import BatchedServer, ContinuousBatchingServer, ServingConfig
 
     cfg = smoke("deepseek_7b")
@@ -54,6 +55,8 @@ def _entry_points():
         "resolve_device": lambda: compat.resolve_device(),
         "init_params": lambda: models.init_params(cfg),
         "init_caches": lambda: models.init_caches(cfg, 1, 8),
+        "init_period_cache": lambda: transformer.init_period_cache(cfg, 1, 8),
+        "init_attn_cache": lambda: attention.init_attn_cache(cfg, cfg.period[0], 1, 8),
         "params_from_jax": lambda: params_from_jax({"w": [1.0]}),
         "ContinuousBatchingServer": lambda: ContinuousBatchingServer(cfg, {}, ServingConfig()),
         "BatchedServer": lambda: BatchedServer(cfg, {}, ServingConfig()),
@@ -61,7 +64,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_params", "init_caches",
-                                  "params_from_jax", "ContinuousBatchingServer", "BatchedServer"])
+                                  "init_period_cache", "init_attn_cache", "params_from_jax",
+                                  "ContinuousBatchingServer", "BatchedServer"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(name):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -71,6 +75,21 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(name):
 def test_cpu_is_used_only_when_asked():
     assert compat.resolve_device("cpu").type == "cpu"
     assert compat.resolve_device(torch.device("cpu")).type == "cpu"
+
+
+def test_cache_builders_take_the_cpu_when_asked():
+    from repro_torch.models import attention, init_caches, transformer
+
+    cfg = smoke("deepseek_7b")
+    trees = (attention.init_attn_cache(cfg, cfg.period[0], 1, 8, device="cpu"),
+             transformer.init_period_cache(cfg, 1, 8, device="cpu"),
+             init_caches(cfg, 1, 8, device="cpu"))
+
+    def leaves(tree):
+        return [t for v in tree.values() for t in (leaves(v) if isinstance(v, dict) else [v])]
+
+    for tree in trees:
+        assert leaves(tree) and all(t.device.type == "cpu" for t in leaves(tree))
 
 
 def test_tf32_is_off():
