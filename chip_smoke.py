@@ -5,6 +5,7 @@ Usage (from the repository root, on a machine with the card)::
 
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --only kernels   # phases 1-2 only
+    python3 chip_smoke.py --only engine    # phases 1-3
     python3 chip_smoke.py --only kernels --root OTHER_CHECKOUT
                                            # another tree's kernels, same cases
 
@@ -17,7 +18,8 @@ Phases, each printing JSON lines:
    ``HGMMA``, ``IMMA`` / ``IGMMA``, from ``cuobjdump --dump-sass``) in
    K4's bf16 kernel and in K1's and K2's prefill tiles — none fails — and
    in K4's f32 kernel, the exact rung, with its ``FFMA`` and ``LDS.128``
-   counts — any fails;
+   counts — any fails — and K3's and K5's instructions per CORDIC step,
+   with their local memory (``LDL`` / ``STL``) — any fails;
 2. kernels: every kernel against its plain PyTorch version on the card —
    K1 qmatmul, K2 fused SwiGLU, K3 CORDIC sincos and K4 flash attention
    at deepseek-7b's and gemma2-2b's shapes (K1/K2 up to gemma2's
@@ -26,34 +28,37 @@ Phases, each printing JSON lines:
    M = 9..4500 with every epilogue and a ragged K, N; K4 bf16 and f32 at
    S = 17, 63, 65, 129, 1000 for D = 64, 128, 256, f32 also at widths off
    the 16-byte loads, a ragged non-causal Skv and windows past whole
-   tiles), with a case that fails unless p is rounded to v's dtype, and
-   K5-K7 (the universal CORDIC family) on 2**24 words plus an edge-value
-   tensor — integer outputs bit-exact, float outputs within the stated
+   tiles), with a case that fails unless p is rounded to v's dtype, K3
+   also on the engine's 2**24 angles (16 and 24 iterations), and K5-K7
+   (the universal CORDIC family) on 2**24 words plus an edge-value tensor,
+   K5 also on words whose every element is live (20, 13 and generic
+   stage counts) — integer outputs bit-exact, float outputs within the stated
    tolerance — with kernel, plain and library times (device time: see
    :func:`time_ms`) and the card's bound for the same work;
-3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid on
-   CUDA tensors of 2**24 elements at ``q16_16``, at ``f32`` and under
-   ``PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24"})``; the
-   fixed rungs must equal the plain bodies bit for bit and lie within the
-   reference's accuracy bounds (tests/test_universal_cordic.py,
-   tests/test_precision_ladder.py) from the exact value, and K5-K7 must
-   have run;
+3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid sin
+   cos on CUDA tensors of 2**24 elements at ``q16_16``, at ``f32`` and
+   under ``PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24",
+   "sin": "q8_24", "cos": "q8_24"})``; the fixed rungs must equal the
+   plain bodies bit for bit and lie within the reference's accuracy
+   bounds (tests/test_universal_cordic.py, tests/test_cordic.py,
+   tests/test_precision_ladder.py) from the exact value, and K3 and K5-K7
+   must have run;
 4. deepseek-7b serving: ``ContinuousBatchingServer`` at the full
    published width and depth (30 layers, random weights from a seed)
    answers 8 greedy requests, half at ``q16_16`` and half at ``f32``;
    every request must return 16 tokens, K1-K4 must have run, logits
-   must be finite, and the ``q16_16`` request that shared its passes
-   only with ``f32`` lanes must give, served alone, its mixed-batch
-   tokens;
+   must be finite, the ``q16_16`` request that shared its passes only
+   with ``f32`` lanes must give, served alone, its mixed-batch tokens,
+   and K3 (the FAST RoPE tables) must run once per ``q16_16`` pass;
 5. gemma2-2b serving (after deepseek-7b's weights are freed): the full
    published model (26 layers, local window 4096 / global, softcaps
    50 / 30, tied embeddings) on an 8192-token pool answers the same 8
    requests plus one 4500-token prompt per rung, which crosses the
    window in prefill and wraps the local layers' rolling buffers while
    decoding; every request returns 16 tokens, every logit is finite and
-   within the final softcap (|logit| <= 30), K5 runs once per ``q16_16``
-   pass, K4 once per layer of every prefill, and the isolation contract
-   holds.
+   within the final softcap (|logit| <= 30), K3 and K5 run once per
+   ``q16_16`` pass, K4 once per layer of every prefill, and the isolation
+   contract holds.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -68,6 +73,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -77,9 +83,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s
 HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
-#: integer ALU: 132 SMs x 64 INT32 lanes x the card's maximum SM clock
-#: (read from nvidia-smi in main; operations per second)
-N_SMS, INT32_LANES = 132, 64
+#: integer operations: 132 SMs x 128 lanes x the card's maximum SM clock
+#: (read from nvidia-smi in main; operations per second).  An SM issues
+#: four warp instructions a clock, to its 64 INT32 ALU lanes (shifts, adds,
+#: logic, compares) and to the 64 lanes of its FMA pipe, which runs the
+#: integer multiply-adds (IMAD: the CORDIC kernels' sign-scaled updates,
+#: and the moves and adds ptxas puts there); counting the ALU lanes alone
+#: put the K3 and K5 kernels above 100 % of their bound
+N_SMS, INT32_LANES = 132, 128
 DEVICE = "cuda"
 #: words per K5-K7 check and per engine op
 N_WORDS = 1 << 24
@@ -163,6 +174,87 @@ def sass_phase(compat) -> dict:
     return out
 
 
+#: the CORDIC kernels K5 and K3: library -> a substring of their functions
+CORDIC_KERNELS = {"universal": "unary", "cordic": "sincos"}
+#: specialised step counts paired to count the instructions of one step:
+#: K5's default schedule against the tests' 13 stages, K3's 24 iterations
+#: (q8_24) against 16 (q16_16)
+STEP_PAIRS = {"universal": (20, 13), "cordic": (24, 16)}
+
+
+def sass_functions(lib: str, cuobjdump: str) -> dict:
+    """{demangled function: [(address, opcode, branch target or None)]}
+    of ``lib``'s SASS (``cuobjdump --dump-sass``)."""
+    import re
+
+    text = subprocess.run([cuobjdump, "--dump-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    rx = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T\d]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :", 1)[1].strip(), [])
+            continue
+        m = rx.search(line) if cur is not None else None
+        if m:
+            target = re.match(r"\s*(0x[0-9a-f]+)", m.group(3)) if "BRA" in m.group(2) else None
+            cur.append((int(m.group(1), 16), m.group(2), int(target.group(1), 16) if target else None))
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(cuobjdump), "cu++filt")
+    if os.path.exists(filt) and funcs:
+        names = list(funcs)
+        out = subprocess.run([filt, *names], capture_output=True, text=True).stdout.splitlines()
+        if len(out) == len(names):
+            funcs = {d.strip(): funcs[n] for n, d in zip(names, out)}
+    return funcs
+
+
+def cordic_sass(compat, src_dir: str, strict: bool) -> dict:
+    """K5's and K3's SASS: instructions, local-memory accesses (LDL / STL),
+    the bodies of their loops (backward branches, longest first) and, for
+    each pair of specialisations in :data:`STEP_PAIRS`, the instructions
+    of one CORDIC step of one element: their difference over the steps
+    they differ by, the elements a thread steps together (``ILP`` in the
+    source), the copies of the steps the kernel inlines and the step
+    sequences an element runs (two for tanh and sigmoid).  ``strict``:
+    fail on any local memory."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(compat._nvcc()), "cuobjdump")
+    out = {}
+    for lib, key in CORDIC_KERNELS.items():
+        funcs = sass_functions(str(compat._lib_path(lib)), cuobjdump)
+        src = open(os.path.join(src_dir, f"{lib}.cu")).read()
+        ilp = re.search(r"constexpr int ILP = (\d+);", src)
+        # the step sequences of one element slot a kernel inlines: K5 once
+        # per batch of a one-path tile (PER_THREAD / ILP, unrolled) and once
+        # in its queue loop, K3 once
+        per_thread = re.search(r"constexpr int PER_THREAD = (\d+);", src)
+        copies = (int(per_thread.group(1)) // int(ilp.group(1)) + 1) if per_thread and ilp else 1
+        rec = {}
+        for name, ins in funcs.items():
+            if key not in name:
+                continue
+            ops = [o for _, o, _ in ins if o != "NOP"]
+            loops = sorted(((a - t) // 16 + 1 for a, _, t in ins if t is not None and t <= a),
+                           reverse=True)
+            rec[name] = {"instructions": len(ops), "LDL": sum(o.startswith("LDL") for o in ops),
+                         "STL": sum(o.startswith("STL") for o in ops), "loops": loops[:6]}
+            if strict:
+                require(rec[name]["LDL"] + rec[name]["STL"] == 0,
+                        f"{name} in lib{lib}.so uses local memory: {rec[name]}")
+        hi, lo = STEP_PAIRS[lib]
+        for name, r in rec.items():
+            twin = name.replace(f"(int){hi}", f"(int){lo}").replace(f"Li{hi}E", f"Li{lo}E")
+            if twin != name and twin in rec and ilp:
+                # tanh and sigmoid (K5 ops 3, 4) step twice: near and far paths
+                seqs = 2 if re.search(r"unary_kernel(<\(int\)|ILi)[34]\D", name) else 1
+                r["instructions_per_step"] = ((r["instructions"] - rec[twin]["instructions"])
+                                              / (hi - lo) / int(ilp.group(1)) / seqs / copies)
+        out[lib] = rec
+    emit({"phase": "device", "cordic_sass": out})
+    return out
+
+
 #: SM clock (Hz) for the spin that holds the card while launches queue;
 #: main() sets it from nvidia-smi
 SPIN_CLOCK_HZ = 1.98e9
@@ -205,12 +297,12 @@ def require(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 # integer operations per element of the CORDIC kernels (the ops bound)
 # ---------------------------------------------------------------------------
-# Counted from the bodies (src/repro_torch/kernels/csrc/cordic.cuh) as ALU
-# instructions: a CORDIC step is 2 shifts, 3 adds and 1 compare; the MSB
-# cascade 5 x (compare, add, shift); a signed or rounding shift 4; the
-# linear-vectoring divide normalises (cascade + 2 shifts) and runs 5 ops
-# per step.  Branches the data takes decide the count (an element on an
-# early-exit path costs its few tests), as this run's inputs need.
+# Counted from the bodies (src/repro_torch/kernels/csrc/cordic.cuh) as
+# integer instructions: a CORDIC step is 2 shifts, 3 adds and 1 compare;
+# the MSB cascade 5 x (compare, add, shift); a signed or rounding shift 4;
+# the linear-vectoring divide normalises (cascade + 2 shifts) and runs 5
+# ops per step.  Branches the data takes decide the count (an element on
+# an early-exit path costs its few tests), as this run's inputs need.
 
 STEP, ILOG2, SHIFT = 6, 15, 4
 
@@ -240,8 +332,10 @@ def unary_ops(op: str, w, stages: int) -> float:
     near = int((at <= 65536).sum())
     far_live = int(((at > 65536) & (at < 386122)).sum())
     far_early = n - near - far_live
+    # past |t| = 5.89 exp(-2|t|) flushes to 0 and (1 - 0) / (1 + 0) is a
+    # constant: the saturated tail costs its tests, not a division
     ops = (near * (10 + STEP * stages + _lindiv()) + far_live * (12 + _exp(stages) + _lindiv())
-           + far_early * (14 + _lindiv()))
+           + far_early * 8)
     return float(ops + (3 * n if op == "sigmoid" else 0))
 
 
@@ -255,9 +349,21 @@ def div_ops(num, den, iterations: int) -> float:
     return 3.0 * zero + (num.numel() - zero) * (20 + 2 * ILOG2 + 3 * SHIFT + _lindiv(iterations))
 
 
-#: K3 per element: the fused RoPE phase (~12), the range reduction (~8),
-#: 16 CORDIC steps and the sign flips
-K3_OPS = 12 + 8 + 16 * STEP + 2
+def k3_ops(iterations: int = 16, rope: bool = False) -> int:
+    """K3 per element: the fused RoPE phase (~12, RoPE form only), the
+    range reduction (~8), the CORDIC steps and the sign flips."""
+    return (12 if rope else 0) + 8 + iterations * STEP + 2
+
+
+def k5_in_domain(op: str, n: int, gen):
+    """int32 words on which every element of ``op`` takes a live path:
+    sqrt and log over (0, 2**31), exp over +-10.0, tanh and sigmoid over
+    +-4.0 (Q16.16)."""
+    import torch
+
+    lo, hi = {"sqrt": (1, 2**31 - 1), "log": (1, 2**31 - 1), "exp": (-10 * 65536, 10 * 65536),
+              "tanh": (-4 * 65536, 4 * 65536), "sigmoid": (-4 * 65536, 4 * 65536)}[op]
+    return torch.randint(lo, hi, (n,), generator=gen, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -406,9 +512,29 @@ def check_kernels(gen):
         rec["library_ms"] = None
         n = n_pos * rope_dim // 2
         rec["bound_ms"], rec["bound_by"] = bound_ms(4 * n_pos + 4 * rope_dim + 8 * n,
-                                                    float(K3_OPS) * n, "int32")
+                                                    float(k3_ops(rope=True)) * n, "int32")
         emit({"phase": "kernels", "kernel": "cordic_sincos", **rec})
         keep("cordic_sincos", rec)
+    # the engine's sin / cos: 2**24 angles over the whole int32 circle, at
+    # q16_16 (16 iterations) and q8_24 (24 iterations, frac bits 24)
+    theta = i32(-2**31, 2**31 - 1, N_WORDS)
+    tf = theta.float() / 65536.0
+    for it in (16, 24):
+        got, want = cordic_sincos(theta, it, it), cordic_sincos_plain(theta, it, it)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        rec = {"case": f"2**24 angles, iterations={it} frac_bits={it} (engine sin/cos)",
+               "bit_exact": exact,
+               "max_abs_err": max((a - b).abs().max().item() for a, b in zip(got, want))}
+        require(exact, f"cordic_sincos {rec['case']} differs from its plain version")
+        rec["ms"] = time_ms(lambda: cordic_sincos(theta, it, it))
+        rec["plain_ms"] = time_ms(lambda: cordic_sincos_plain(theta, it, it), iters=2, warmup=1)
+        rec["library_ms"] = time_ms(lambda: (torch.sin(tf), torch.cos(tf)))
+        rec["library"] = "torch.sin + torch.cos on f32 (float analogue, not the same bits)"
+        rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * N_WORDS, float(k3_ops(it)) * N_WORDS,
+                                                    "int32")
+        emit({"phase": "kernels", "kernel": "cordic_sincos", **rec})
+    del theta, tf
 
     # K4 -------------------------------------------------------------------
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -542,6 +668,26 @@ def check_kernels(gen):
             emit({"phase": "kernels", "kernel": "universal_unary", **rec})
             if op == "tanh" and stages == 20:
                 records["universal_unary"] = rec
+        # every element live (tanh / sigmoid still mix their near and far
+        # paths), at the default schedule; generic schedules on a slice
+        wi = k5_in_domain(op, N_WORDS, gen).to(dev)
+        wif = from_fixed(wi, Q16_16)
+        for stages in (20, 13, 7, 64):
+            x = wi if stages in (20, 13) else wi[: 1 << 20]
+            exact = (torch.equal(universal_unary(x, op, stages), universal_unary_plain(x, op, stages))
+                     and torch.equal(universal_unary(edge, op, stages),
+                                     universal_unary_plain(edge, op, stages)))
+            require(exact, f"universal_unary {op} stages={stages} (in-domain words) differs "
+                    "from its plain version")
+        rec = {"case": f"{op} stages=20 2**24 in-domain words", "bit_exact": True,
+               "checked_stages": [20, 13, 7, 64], "max_abs_err": 0.0,
+               "ms": time_ms(lambda: universal_unary(wi, op, 20)),
+               "plain_ms": time_ms(lambda: universal_unary_plain(wi, op, 20), iters=2, warmup=1),
+               "library_ms": time_ms(lambda: getattr(torch, op)(wif))}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(8.0 * wi.numel(), unary_ops(op, wi, 20),
+                                                    "int32")
+        emit({"phase": "kernels", "kernel": "universal_unary", **rec})
+        del wi, wif
 
     x = words(6)
     y = torch.roll(x, 7)
@@ -623,18 +769,23 @@ def _reset_launch_counts():
 #: op -> (input ranges, accuracy bound from the exact value) as the
 #: reference's tests state them (tests/test_universal_cordic.py,
 #: tests/test_precision_ladder.py)
-ENGINE_OPS = ("atan2", "div", "sqrt", "exp", "log", "tanh", "sigmoid")
+ENGINE_OPS = ("atan2", "div", "sqrt", "exp", "log", "tanh", "sigmoid", "sin", "cos")
 
 
 def engine_phase(seed: int):
     """Every new engine op on CUDA tensors at q16_16, f32 and under a
-    per-op policy; returns the K5-K7 launches of the run."""
+    per-op policy; returns the K3 and K5-K7 launches of the run."""
     import torch
 
     from repro_torch.core.cordic import ITER_Q24
     from repro_torch.core.precision import MathEngine, PrecisionPolicy
     from repro_torch.core.qformat import Q8_24, Q16_16, from_fixed, to_fixed
-    from repro_torch.kernels.cordic import atan2_q16_plain, div_q16_plain, universal_unary_plain
+    from repro_torch.kernels.cordic import (
+        atan2_q16_plain,
+        cordic_sincos_plain,
+        div_q16_plain,
+        universal_unary_plain,
+    )
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -655,6 +806,8 @@ def engine_phase(seed: int):
         "log": (torch.cat([grid(2.0 ** -10, 1.0, half), grid(1.0, 32767.0, half)]),),
         "tanh": (grid(-16.0, 16.0),),
         "sigmoid": (grid(-20.0, 20.0),),
+        "sin": (grid(-math.pi, math.pi),),
+        "cos": (grid(-math.pi, math.pi),),
     }
     den = inputs["div"][1]
     inputs["div"] = (inputs["div"][0], torch.where(den == 0, torch.full_like(den, 2.0 ** -16), den))
@@ -665,6 +818,8 @@ def engine_phase(seed: int):
             out = atan2_q16_plain(*q)
         elif op == "div":
             out = div_q16_plain(*q)
+        elif op in ("sin", "cos"):
+            out = cordic_sincos_plain(q[0])[op == "cos"]
         else:
             out = universal_unary_plain(q[0], op)
         return from_fixed(out, Q16_16)
@@ -681,13 +836,15 @@ def engine_phase(seed: int):
             return 2.0 ** -16 + 3e-5 * a, torch.ones_like(want, dtype=torch.bool)
         if op == "exp":
             return 2.0 ** -16 + 6e-5 * a, args[0] < 681391 / 65536
-        tol = {"log": 8e-5, "tanh": 6e-5, "sigmoid": 5e-5}[op]
+        # sin / cos: tests/test_cordic.py's ABS_TOL on [-pi, pi]
+        tol = {"log": 8e-5, "tanh": 6e-5, "sigmoid": 5e-5, "sin": 8e-4, "cos": 8e-4}[op]
         return torch.full_like(want, tol), torch.ones_like(want, dtype=torch.bool)
 
     eng = MathEngine("q16_16")
     _reset_launch_counts()
     fixed = {op: eng.call(op, *args) for op, args in inputs.items()}
-    policy = PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24"})
+    policy = PrecisionPolicy(default="q16_16",
+                             per_op={"atan2": "q8_24", "sin": "q8_24", "cos": "q8_24"})
     with eng.at(policy):
         pinned = {op: eng.call(op, *args) for op, args in inputs.items()}
     torch.cuda.synchronize()
@@ -710,7 +867,7 @@ def engine_phase(seed: int):
         require(rec["bit_exact"], f"engine {op} at q16_16 differs from the plain body")
         require(rec["worst_err_over_bound"] <= 1.0,
                 f"engine {op} at q16_16 outside the reference's bound: {rec}")
-        if op != "atan2":
+        if op not in ("atan2", "sin", "cos"):
             require(torch.equal(pinned[op], fixed[op]), f"engine {op} under the policy moved")
         out[op] = rec
 
@@ -728,15 +885,29 @@ def engine_phase(seed: int):
                           "max_err_vs_f64": err24}
     require(out["atan2@q8_24"]["bit_exact"], "engine atan2 under the policy differs from q8_24")
     require(err24 <= 1e-6 + 2.0 ** -24, f"engine atan2 at q8_24: error {err24} > 1e-6 + 2**-24")
+    # the policy's sin / cos: K3 with 24 iterations on Q8.24 angles, held
+    # bit-exact against the plain body and within tests/test_precision_ladder.py's
+    # 2e-6 of the float64 sin / cos of the Q8.24 angle (here the angle itself:
+    # Q16.16 grid values are Q8.24 words)
+    for op in ("sin", "cos"):
+        t = inputs[op][0]
+        want = from_fixed(cordic_sincos_plain(to_fixed(t, Q8_24), ITER_Q24, 24)[op == "cos"],
+                          Q8_24)
+        exact_t = getattr(torch, op)(t.double())
+        err = (pinned[op].double() - exact_t).abs().max().item()
+        out[f"{op}@q8_24"] = {"bit_exact": torch.equal(pinned[op], want), "max_err_vs_f64": err}
+        require(out[f"{op}@q8_24"]["bit_exact"], f"engine {op} under the policy differs from q8_24")
+        require(err <= 2e-6, f"engine {op} at q8_24: error {err} > 2e-6")
 
     emit({"phase": "engine", "elements": N_WORDS, "ops": out, "launches": launches,
           "policy": repr(policy), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    for name in ("universal_unary", "atan2_q16", "div_q16"):
+    for name in ("cordic_sincos", "universal_unary", "atan2_q16", "div_q16"):
         require(launches[name] > 0, f"kernel {name} was not launched by the engine")
-    # 5 unary ops twice (q16_16, policy), atan2 and div twice each
+    # 5 unary ops twice (q16_16, policy), atan2, div, sin and cos twice each
     require(launches["universal_unary"] == 10 and launches["atan2_q16"] == 2
-            and launches["div_q16"] == 2, f"engine launches {launches}")
-    return {k: launches[k] for k in ("universal_unary", "atan2_q16", "div_q16")}
+            and launches["div_q16"] == 2 and launches["cordic_sincos"] == 4,
+            f"engine launches {launches}")
+    return {k: launches[k] for k in ("cordic_sincos", "universal_unary", "atan2_q16", "div_q16")}
 
 
 # ---------------------------------------------------------------------------
@@ -888,6 +1059,16 @@ def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_l
     require(logits_ok and logits_all_ok, f"{cfg.name}: logits not all finite{cap}")
     require(isolation_ok, f"{cfg.name}: the q16_16 request served alone differs from its "
                           "mixed-batch tokens")
+    # the FAST RoPE tables: one K3 launch per q16_16 pass (prefill or
+    # decode), none on the f32 rung
+    want_k3 = rec["q16_16_prefills"] + rec["q16_16_passes"]
+    require(rec["launches"]["cordic_sincos"] == want_k3,
+            f"{cfg.name}: K3 launched {rec['launches']['cordic_sincos']} times, want {want_k3}")
+    for lv, want in (("q16_16", 1), ("f32", 0)):
+        got = (rec["launches_per_prefill"][lv]["cordic_sincos"],
+               rec["launches_per_decode_tick"][lv]["cordic_sincos"])
+        require(got == (want, want), f"{cfg.name}: a {lv} prefill / decode pass launched K3 "
+                f"{got} times, want {want}")
     return rec
 
 
@@ -948,8 +1129,8 @@ REPLACES = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="stop after the kernel phase")
+    ap.add_argument("--only", choices=("kernels", "engine"), default=None,
+                    help="stop after the kernel phase, or after the engine phase")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--root", default=None,
                     help="build and check the port of another checkout with this script's "
@@ -999,6 +1180,8 @@ def main(argv=None) -> int:
         sass_phase(compat)
     else:
         emit({"phase": "device", "root": root, "tensor_core_sass": "not checked"})
+    # reported for another checkout too, checked only for this one
+    cordic_sass(compat, str(compat.CSRC_DIR), strict=root == ROOT)
 
     gen = torch.Generator().manual_seed(args.seed)
     torch.cuda.reset_peak_memory_stats()
@@ -1010,6 +1193,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path["engine"] = engine_phase(args.seed)
+    if args.only is None:
         gc.collect()
         torch.cuda.empty_cache()
         by_path["deepseek_7b"] = deepseek_phase(args.seed)

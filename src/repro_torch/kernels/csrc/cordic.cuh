@@ -8,8 +8,10 @@
 //
 // The hyperbolic functions are templates over their schedule: K2 uses
 // DefaultHyper (the 20-stage schedule in constant memory, unrolled at
-// compile time); K5 passes HyperParams by value, so any `stages` the
-// reference accepts runs the same code.
+// compile time); K5's kernel for any other `stages` the reference
+// accepts passes HyperParams by value.  K5's kernels for the default
+// schedule and the tests' 13 stages run the lean batch steps at the end
+// of this file, with shifts and atanh constants as immediates.
 #pragma once
 
 #include "common.cuh"
@@ -270,6 +272,111 @@ __device__ __forceinline__ int32_t div_q16(int32_t num_in, int32_t den_in, int i
   const int32_t sl = imax(e, 0);
   const int32_t mag = zr <= sar(RAW_MAX, sl) ? shl(zr, sl) : RAW_MAX;
   return (num < 0) != (den < 0) ? wneg(mag) : mag;
+}
+
+// ---------------------------------------------------------------------------
+// compile-time schedules and lean steps (K5's specialised kernels)
+// ---------------------------------------------------------------------------
+
+constexpr int32_t K_H_INV13_Q29 = 648270041;  // hyper_gain_inverse(hyperbolic_schedule(13), 29)
+
+// hyperbolic_schedule(n)[j] for j < 40 (every n shares this prefix up to
+// the third repeat, at 40)
+__host__ __device__ constexpr int hyper_shift_at(int j) { return j < 4 ? j + 1 : (j < 14 ? j : j - 1); }
+
+// round(atanh(2**-i) * 2**29) for 1 <= i <= 29; from i = 10 on the cubic
+// term is below half a unit, so the entry is 2**(29 - i)
+__host__ __device__ constexpr int32_t atanh_q29_at(int i) {
+  switch (i) {
+    case 1: return 294906491;
+    case 2: return 137123709;
+    case 3: return 67461703;
+    case 4: return 33598225;
+    case 5: return 16782681;
+    case 6: return 8389291;
+    case 7: return 4194389;
+    case 8: return 2097163;
+    case 9: return 1048577;
+    default: return int32_t{1} << (29 - i);
+  }
+}
+
+// One shift-add step on wrapping 32-bit words, in "add" (x += ys, y += xs,
+// z -= t) or "sub" (x -= ys, y -= xs, z += t) direction, chosen per
+// element without a branch: sgn = +1 (add) or -1 (sub) scales the
+// updates (IMAD), so the shifts and the sign stay on the ALU pipe and
+// the three updates go to the FMA pipe.
+__device__ __forceinline__ void hyper_update(int32_t& x, int32_t& y, int32_t& z, int32_t xs,
+                                             int32_t ys, int32_t t, uint32_t sgn) {
+  x = static_cast<int32_t>(static_cast<uint32_t>(x) + sgn * static_cast<uint32_t>(ys));
+  y = static_cast<int32_t>(static_cast<uint32_t>(y) + sgn * static_cast<uint32_t>(xs));
+  z = static_cast<int32_t>(static_cast<uint32_t>(z) - sgn * static_cast<uint32_t>(t));
+}
+
+// N stages of the compile-time schedule on ILP independent elements.
+// Vectoring: add iff y < 0 (sgn = -(2m + 1), m = y >> 31); rotation: add
+// iff z >= 0 (sgn = 2m + 1, m = z >> 31).  Without z (sqrt) the z update
+// folds away.
+template <int N, int ILP>
+__device__ __forceinline__ void hyper_vectoring_n(int32_t (&x)[ILP], int32_t (&y)[ILP],
+                                                  int32_t (&z)[ILP]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int s = hyper_shift_at(j);
+    const int32_t t = atanh_q29_at(s);
+#pragma unroll
+    for (int e = 0; e < ILP; ++e) {
+      const uint32_t sgn = 0u - (2u * static_cast<uint32_t>(y[e] >> 31) + 1u);
+      hyper_update(x[e], y[e], z[e], x[e] >> s, y[e] >> s, t, sgn);
+    }
+  }
+}
+
+template <int N, int ILP>
+__device__ __forceinline__ void hyper_rotation_n(int32_t (&x)[ILP], int32_t (&y)[ILP],
+                                                 int32_t (&z)[ILP]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int s = hyper_shift_at(j);
+    const int32_t t = atanh_q29_at(s);
+#pragma unroll
+    for (int e = 0; e < ILP; ++e) {
+      const uint32_t sgn = 2u * static_cast<uint32_t>(z[e] >> 31) + 1u;
+      hyper_update(x[e], y[e], z[e], x[e] >> s, y[e] >> s, t, sgn);
+    }
+  }
+}
+
+// linear_div_q16 (17 steps) on ILP elements with den >= 1.  b = ilog2(den)
+// is at most 30, so the normalising shift 29 - b lies in [-1, 29] and
+// needs no guard.  z = sum_i d_i 2**(16 - i) with d_i = +1 where y_i >= 0
+// and -1 where y_i < 0, i.e. 2c + 2**17 - 1 with c = sum_i m_i 2**(16 - i)
+// (m_i = y_i >> 31), which Horner's rule builds one shift-add a step.
+template <int ILP>
+__device__ __forceinline__ void linear_div_n(const int32_t (&num)[ILP], const int32_t (&den)[ILP],
+                                             int32_t (&out)[ILP]) {
+  int32_t x[ILP], y[ILP];
+  uint32_t c[ILP];
+#pragma unroll
+  for (int e = 0; e < ILP; ++e) {
+    const int s = 29 - (31 - __clz(den[e]));
+    x[e] = shift_signed(den[e], -s);
+    y[e] = shift_signed(num[e], -s);
+    c[e] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < 17; ++i) {
+#pragma unroll
+    for (int e = 0; e < ILP; ++e) {
+      const int32_t m = y[e] >> 31;
+      // y >= 0: y -= xs; y < 0: y += xs
+      const uint32_t sgn = 2u * static_cast<uint32_t>(m) + 1u;
+      y[e] = static_cast<int32_t>(static_cast<uint32_t>(y[e]) - sgn * static_cast<uint32_t>(x[e] >> i));
+      c[e] = 2u * c[e] + static_cast<uint32_t>(m);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < ILP; ++e) out[e] = static_cast<int32_t>(2u * c[e] + ((1u << 17) - 1u));
 }
 
 }  // namespace rq

@@ -24,7 +24,7 @@ pool.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -122,17 +122,22 @@ def _prefill_cache(cache: dict, k, v, positions, window) -> dict:
 
 def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: LayerSpec, *,
                       positions: torch.Tensor, mode: str = "precise", cache=None,
-                      prefill: bool = False, lane_mask: Optional[torch.Tensor] = None):
+                      prefill: bool = False, lane_mask: Optional[torch.Tensor] = None,
+                      rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """x (B,S,d) -> (out, cache).  ``cache=None``: no cache (positions
     must be ``arange(S)``); ``prefill``: K4 attention + rows [0, S)
-    written; S == 1: decode against the cache."""
+    written; S == 1: decode against the cache.  ``rope``: the (sin, cos)
+    tables of ``positions`` at this rung, built once a pass by the model
+    (``rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)``);
+    without them they are built here."""
     B, S, _ = x.shape
     h = rms_norm(x, params["norm"], cfg.rms_eps)
     q = pdot(h, params["wq"], mode, wq=params.get("wq_q")).reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = pdot(h, params["wk"], mode, wq=params.get("wk_q")).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = pdot(h, params["wv"], mode, wq=params.get("wv_q")).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
 
-    sin, cos = rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)
+    sin, cos = rope if rope is not None else rope_tables(positions, cfg.head_dim, cfg.rope_base,
+                                                         mode)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
 

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.compat import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Spec, init_from_specs, rms_norm, softcap
+from repro_torch.models.layers import Spec, init_from_specs, rms_norm, rope_tables, softcap
 from repro_torch.models.transformer import init_period_cache, period_forward, period_specs
 
 __all__ = [
@@ -144,10 +144,13 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor, mode: str) -> torch.T
 
 
 def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None):
+    # every attention layer rotates by (head_dim, rope_base): one pair of
+    # tables a pass (one K3 launch on the FAST rung), not one a layer
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)
     for i in range(cfg.n_periods):
         cache_i = None if caches is None else _map(lambda c: c[i], caches)
         x, _ = period_forward(layer_params(params, i), x, cfg, positions=positions, mode=mode,
-                              caches=cache_i, prefill=prefill, lane_mask=lane_mask)
+                              caches=cache_i, prefill=prefill, lane_mask=lane_mask, rope=rope)
     return x
 
 

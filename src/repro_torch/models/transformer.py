@@ -48,15 +48,18 @@ def init_period_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.fl
 
 def period_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
                    mode: str = "precise", caches: Optional[dict] = None, prefill: bool = False,
-                   lane_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[dict]]:
+                   lane_mask: Optional[torch.Tensor] = None,
+                   rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Apply one period; returns (x, caches) with ``caches`` updated in
-    place (the same dict)."""
+    place (the same dict).  ``rope``: the pass's (sin, cos) tables, handed
+    to every attention layer (see ``attention.attention_forward``)."""
     for i, spec in enumerate(cfg.period):
         p = params[f"pos{i}"]
         cache_i = caches.get(f"pos{i}") if caches is not None else None
         h, _ = attn.attention_forward(
             p["mixer"], x, cfg, spec, positions=positions, mode=mode, cache=cache_i,
-            prefill=prefill, lane_mask=lane_mask,
+            prefill=prefill, lane_mask=lane_mask, rope=rope,
         )
         x = x + h
         x = x + swiglu_mlp(p["ffn"], x, mode, cfg.rms_eps)

@@ -274,3 +274,94 @@ def test_cuda_div_matches_plain(cuda):
     z = torch.zeros_like(num)
     for a, b in ((num, den), (num, z), (z, num), (z, z)):
         assert torch.equal(div_q16(a, b), div_q16_plain(a, b))
+
+
+# K5's tiles: a block takes 2048 words, queues its live elements per path
+# and skips the queues when one path takes the whole tile; 20 and 13
+# stages run compiled-in schedules, any other count the generic kernel
+K5_TILE = 2048
+K5_SIZES = [1, 3, 4097, K5_TILE + 1]
+
+
+def _k5_inputs(op, kind, n, g):
+    """``n`` words of one kind: every element live (one path, or tanh's
+    and sigmoid's near and far paths mixed), every element an early exit,
+    or the whole int32 range mixed with the live region."""
+    u = 65536
+    live = {"sqrt": (1, 2**31 - 1), "log": (1, 2**31 - 1), "exp": (-772243, 681390),
+            "tanh": (-4 * u, 4 * u), "sigmoid": (-8 * u, 8 * u)}[op]
+    dead = {"sqrt": (-(2**31), 1), "log": (-(2**31), 1), "exp": (681391, 2**31 - 1),
+            "tanh": (386122, 2**31 - 1), "sigmoid": (2 * 386122, 2**31 - 1)}[op]
+    if kind == "near":     # tanh / sigmoid: |t| <= 1 only
+        live = (-u, u + 1) if op == "tanh" else (-2 * u, 2 * u + 1)
+    lo, hi = {"live": live, "near": live, "dead": dead}.get(kind, (-(2**31), 2**31 - 1))
+    w = torch.randint(lo, hi, (n,), generator=g, dtype=torch.int32)
+    if kind == "mixed":
+        w[::2] = torch.randint(-40 * u, 40 * u, ((n + 1) // 2,), generator=g, dtype=torch.int32)
+    return w
+
+
+# (op, kind): "near" only where an op has two live paths
+K5_TILE_CASES = [(op, kind) for op in sorted(UNARY_OPS) for kind in ("live", "dead", "mixed")]
+K5_TILE_CASES += [(op, "near") for op in ("sigmoid", "tanh")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,kind", K5_TILE_CASES)
+@pytest.mark.parametrize("stages", [20, 13, 7, 64])
+def test_cuda_universal_unary_tiles_match_plain(cuda, op, kind, stages):
+    g = torch.Generator().manual_seed(stages * 7 + len(kind))
+    for n in K5_SIZES + [3 * K5_TILE]:
+        w = _k5_inputs(op, kind, n, g).to(cuda)
+        assert torch.equal(universal_unary(w, op, stages), universal_unary_plain(w, op, stages)), n
+    # a view off the 16-byte alignment takes the scalar loads
+    w = _k5_inputs(op, kind, 2 * K5_TILE + 1, g).to(cuda)[1:]
+    assert torch.equal(universal_unary(w, op, stages), universal_unary_plain(w, op, stages))
+    e = torch.tensor(EDGES, dtype=torch.int32, device=cuda)
+    assert torch.equal(universal_unary(e, op, stages), universal_unary_plain(e, op, stages))
+
+
+# K3: the edge angles of chip_smoke.py, +-pi, +-pi/2 and the theta + pi
+# wrap near INT32_MAX, in Q16.16 and Q8.24
+def _k3_edges(frac_bits):
+    from repro_torch.core.cordic import angle_consts
+
+    pi, half_pi, two_pi = angle_consts(frac_bits)
+    e = [0, 1, -1, 2**31 - 1, -(2**31), 2**31 - pi, -(2**31) + pi, 2**31 - pi - 1,
+         2**31 - pi + 1, 2**30, -(2**30), pi, -pi, pi - 1, -pi + 1, half_pi, -half_pi,
+         half_pi + 1, -half_pi - 1, two_pi, -two_pi, two_pi + pi, 3 * two_pi - 1]
+    e += [k * two_pi + d for k in (-3, -1, 1, 2) for d in (-pi - 1, -pi, -pi + 1, pi - 1, pi)]
+    return [v for v in e if -(2**31) <= v < 2**31]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations,frac_bits", [(16, 16), (24, 24), (16, 24), (7, 16),
+                                                  (32, 16), (20, 24)])
+def test_cuda_cordic_elementwise_matches_plain(cuda, iterations, frac_bits):
+    g = torch.Generator().manual_seed(iterations + frac_bits)
+    edges = torch.tensor(_k3_edges(frac_bits), dtype=torch.int32)
+    for n in (1, 3, 4, 4097, 70001):
+        th = torch.cat([edges, torch.randint(-(2**31), 2**31 - 1, (n,), generator=g,
+                                             dtype=torch.int32)]).to(cuda)
+        for t in (th, th[1:]):   # 16-byte vectors, and a view off them
+            got = cordic_sincos(t, iterations, frac_bits)
+            want = cordic_sincos_plain(t, iterations, frac_bits)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (n, t.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope_dim", [64, 128, 256, 20])
+@pytest.mark.parametrize("shape", [(1,), (7,), (300,), (4500,), (3, 5), (4, 1), (2, 300)])
+def test_cuda_rope_tables_match_plain(cuda, rope_dim, shape):
+    g = torch.Generator().manual_seed(rope_dim + sum(shape))
+    n = 1
+    for d in shape:
+        n *= d
+    # positions from 0, then arbitrary ones up to the uint32 range
+    for pos in (torch.arange(n, dtype=torch.int32).reshape(shape),
+                torch.randint(-(2**31), 2**31 - 1, shape, generator=g, dtype=torch.int32)):
+        pos = pos.to(cuda)
+        got = rope_sincos_q16(pos, rope_dim)
+        want = rope_sincos_plain(pos, rope_dim)
+        assert got[0].shape == shape + (rope_dim // 2,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

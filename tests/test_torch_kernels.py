@@ -218,6 +218,45 @@ def test_cuda_header_constants_match_generators():
     assert const("EXP_FLUSH_LO_Q16") == jcordic.EXP_FLUSH_LO_Q16
 
 
+def _switch(src, func):
+    """{case: literal} and the default's shift base of the constexpr table
+    function ``func`` (one ``switch``) in a CUDA source."""
+    body = src[src.index(func + "("):]
+    body = body[: body.index("default:") + 80]
+    cases = {int(i): int(v) for i, v in re.findall(r"case (\d+): return (\d+);", body)}
+    base = int(re.search(r"default: return int32_t\{1\} << \((\d+) - i\)", body).group(1))
+    return cases, base
+
+
+def test_cuda_compiled_schedules_match_generators():
+    """The schedules K5 and K3 compile in (cordic.cuh, cordic.cu) against
+    the reference's generators: K5's shifts, atanh entries and gains at 20
+    and 13 stages, K3's atan tables at (16, 16) and (24, 24)."""
+    hdr = (CSRC / "cordic.cuh").read_text()
+    m = re.search(r"hyper_shift_at\(int j\) \{ return j < (\d+) \? j \+ 1 : \(j < (\d+) \? j : "
+                  r"j - 1\); \}", hdr)
+    first, second = int(m.group(1)), int(m.group(2))
+    for stages in (20, 13):
+        sched = jcordic.hyperbolic_schedule(stages)
+        assert [j + 1 if j < first else (j if j < second else j - 1) for j in range(stages)] == \
+            list(sched)
+    cases, base = _switch(hdr, "atanh_q29_at")
+    shifts = tuple(range(1, 30))
+    want = [int(v) for v in jcordic.atanh_table(shifts, 29)]
+    assert [cases.get(i, 1 << (base - i)) for i in shifts] == want
+    k13 = int(re.search(r"constexpr int32_t K_H_INV13_Q29 = (\d+);", hdr).group(1))
+    assert k13 == jcordic.hyper_gain_inverse(jcordic.hyperbolic_schedule(13), 29)
+
+    src = (CSRC / "cordic.cu").read_text()
+    body = src[src.index("atan_at(int frac, int i)"):]
+    f16, f24 = body.split("if (frac == 16)", 1)[1].split("switch (i)")[1:3]
+    for frac, text in ((16, f16), (24, f24)):
+        cases, base = _switch("f(" + text, "f")
+        assert base == frac
+        assert [cases.get(i, 1 << (frac - i)) for i in range(frac)] == \
+            [int(v) for v in jcordic.atan_table(frac, frac)]
+
+
 def test_cordic_wrapper_rejects_wrong_dtype():
     with pytest.raises(TypeError):
         cordic_sincos(torch.zeros(4, dtype=torch.int64))
