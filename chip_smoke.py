@@ -18,8 +18,10 @@ Phases, each printing JSON lines:
    ``HGMMA``, ``IMMA`` / ``IGMMA``, from ``cuobjdump --dump-sass``) in
    K4's bf16 kernel and in K1's and K2's prefill tiles — none fails — and
    in K4's f32 kernel, the exact rung, with its ``FFMA`` and ``LDS.128``
-   counts — any fails — and K3's and K5's instructions per CORDIC step,
-   with their local memory (``LDL`` / ``STL``) — any fails;
+   counts — any fails — and K3's, K5's and K6's instructions per CORDIC
+   step, with K3's, K5's, K6's and K7's local memory (``LDL`` / ``STL``)
+   — any fails — and K6's and K7's constant loads (a compiled schedule
+   that loads one a step fails);
 2. kernels: every kernel against its plain PyTorch version on the card —
    K1 qmatmul, K2 fused SwiGLU, K3 CORDIC sincos and K4 flash attention
    at deepseek-7b's and gemma2-2b's shapes (K1/K2 up to gemma2's
@@ -32,7 +34,11 @@ Phases, each printing JSON lines:
    also on the engine's 2**24 angles (16 and 24 iterations), and K5-K7
    (the universal CORDIC family) on 2**24 words plus an edge-value tensor,
    K5 also on words whose every element is live (20, 13 and generic
-   stage counts) — integer outputs bit-exact, float outputs within the stated
+   stage counts), K6 and K7 also at generic counts and through their
+   float entries (``atan2_f32``, ``atan2_24_f32``, ``div_f32``: f32 in
+   and out, held bit for bit against the to_fixed -> kernel -> from_fixed
+   chain on 2**24 floats and a grid of float edges, NaN and +-inf
+   included) — integer outputs bit-exact, float outputs within the stated
    tolerance — with kernel, plain and library times (device time: see
    :func:`time_ms`) and the card's bound for the same work;
 3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid sin
@@ -41,8 +47,9 @@ Phases, each printing JSON lines:
    "sin": "q8_24", "cos": "q8_24"})``; the fixed rungs must equal the
    plain bodies bit for bit and lie within the reference's accuracy
    bounds (tests/test_universal_cordic.py, tests/test_cordic.py,
-   tests/test_precision_ladder.py) from the exact value, and K3 and K5-K7
-   must have run;
+   tests/test_precision_ladder.py) from the exact value, the policy's
+   ``q8_24`` atan2 is timed, and K3 and K5-K7 must have run, K6 and K7
+   through their float entries only (one pass an op);
 4. deepseek-7b serving: ``ContinuousBatchingServer`` at the full
    published width and depth (30 layers, random weights from a seed)
    answers 8 greedy requests, half at ``q16_16`` and half at ``f32``;
@@ -215,8 +222,9 @@ def cordic_sass(compat, src_dir: str, strict: bool) -> dict:
     of one CORDIC step of one element: their difference over the steps
     they differ by, the elements a thread steps together (``ILP`` in the
     source), the copies of the steps the kernel inlines and the step
-    sequences an element runs (two for tanh and sigmoid).  ``strict``:
-    fail on any local memory."""
+    sequences an element runs (two for tanh and sigmoid); K6's and K7's
+    under "pairs" (:func:`pair_sass`).  ``strict``: fail on any local
+    memory."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(compat._nvcc()), "cuobjdump")
@@ -251,7 +259,68 @@ def cordic_sass(compat, src_dir: str, strict: bool) -> dict:
                 r["instructions_per_step"] = ((r["instructions"] - rec[twin]["instructions"])
                                               / (hi - lo) / int(ilp.group(1)) / seqs / copies)
         out[lib] = rec
+    out["pairs"] = pair_sass(compat, src_dir, cuobjdump, strict)
     emit({"phase": "device", "cordic_sass": out})
+    return out
+
+
+#: K6's two compiled schedules of int32 words, atan2_kernel<IO, FRAC, N>
+#: at (0, 24, 24) and (0, 16, 16) as demangled and as mangled names, and
+#: the steps they differ by
+K6_SCHEDULES = (("<(int)0, (int)24, (int)24>", "ILi0ELi24ELi24EE"),
+                ("<(int)0, (int)16, (int)16>", "ILi0ELi16ELi16EE"), 8)
+#: the shortest schedule K6 or K7 compiles in (K6 at frac 16)
+MIN_COMPILED_STEPS = 16
+
+
+#: SASS opcodes that issue to an SM's FMA pipe (beside the ALU's 64 integer
+#: lanes), to its conversion unit, and those that move data or steer
+#: control rather than compute (not counted as a kernel's operations)
+FMA_PIPE = ("IMAD", "FFMA", "FMUL", "FADD")
+CONVERT = ("F2I", "I2F", "FRND", "MUFU", "FLO")
+NOT_ARITH = ("LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "CS2R", "BRA", "EXIT", "BSSY",
+             "BSYNC", "ULOP3", "UIADD3", "UMOV", "PLOP3", "CALL", "RET")
+
+
+def pair_sass(compat, src_dir: str, cuobjdump: str, strict: bool) -> dict:
+    """K6's and K7's SASS: instructions, local memory (LDL / STL), constant
+    loads (LDC: a compiled kernel takes no table, so none a step) and the
+    arithmetic by pipe (ALU, FMA pipe, conversions) of each function, and
+    the instructions of one K6 step of one pair: the difference of its two
+    compiled schedules over the steps they differ by and the pairs a
+    thread takes (``V`` in the source).  ``strict``: fail on local memory,
+    or on a compiled kernel with an LDC a step."""
+    import re
+
+    funcs = sass_functions(str(compat._lib_path("universal")), cuobjdump)
+    v = re.search(r"constexpr int V = (\d+);", open(os.path.join(src_dir, "universal.cu")).read())
+    out = {}
+    for kernel in ("atan2_kernel", "div_kernel"):
+        recs = {}
+        for name, ins in funcs.items():
+            if kernel not in name:
+                continue
+            base = [o.split(".")[0] for _, o, _ in ins if o != "NOP"]
+            r = {"instructions": len(base), "LDL": base.count("LDL"), "STL": base.count("STL"),
+                 "LDC": base.count("LDC"), "FMA": sum(o in FMA_PIPE for o in base),
+                 "convert": sum(o in CONVERT for o in base),
+                 "ALU": sum(o not in FMA_PIPE + CONVERT + NOT_ARITH for o in base)}
+            recs[name] = r
+            # a compiled schedule: the last template argument N is not 0
+            compiled = not re.search(re.escape(kernel) + r"(?:<[^>]*\(int\)0>|I(?:Li\d+E)*Li0EE)",
+                                     name)
+            if strict:
+                require(r["LDL"] + r["STL"] == 0, f"{name} uses local memory: {r}")
+                require(not compiled or r["LDC"] < MIN_COMPILED_STEPS,
+                        f"{name} (compiled) loads constants a step: {r}")
+        out[kernel] = recs
+    hi, lo = ([r for n, r in out["atan2_kernel"].items() if any(k in n for k in keys)]
+              for keys in K6_SCHEDULES[:2])
+    if len(hi) == 1 and len(lo) == 1 and v:
+        out["atan2_kernel_instructions_per_step"] = (
+            (hi[0]["instructions"] - lo[0]["instructions"]) / K6_SCHEDULES[2] / int(v.group(1)))
+    elif strict:
+        raise Failure("no atan2_kernel schedules (0, 24, 24) and (0, 16, 16) to count a step from")
     return out
 
 
@@ -297,8 +366,9 @@ def require(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 # integer operations per element of the CORDIC kernels (the ops bound)
 # ---------------------------------------------------------------------------
-# Counted from the bodies (src/repro_torch/kernels/csrc/cordic.cuh) as
-# integer instructions: a CORDIC step is 2 shifts, 3 adds and 1 compare;
+# K3 and K5 are counted from the bodies (src/repro_torch/kernels/csrc/
+# cordic.cuh) as integer instructions: a CORDIC step is 2 shifts, 3 adds
+# and 1 compare;
 # the MSB cascade 5 x (compare, add, shift); a signed or rounding shift 4;
 # the linear-vectoring divide normalises (cascade + 2 shifts) and runs 5
 # ops per step.  Branches the data takes decide the count (an element on
@@ -339,6 +409,23 @@ def unary_ops(op: str, w, stages: int) -> float:
     return float(ops + (3 * n if op == "sigmoid" else 0))
 
 
+# K6 and K7 are counted as the function needs, in K3's and K5's terms:
+# a circular step is STEP, a linear-division step 5 (:func:`_lindiv`).
+# A K6 pair adds the x < 0 fold-back and its tests (16), the ilog2 of
+# max(|x|, |y|) and two normalising shifts; a K7 pair its signs, den == 0
+# and saturation tests (20), two ilog2s and three shifts (two normalising,
+# one by the exponent) — both operands go to the same bit, so the division
+# needs no normalisation of its own.  (0, 0) and a zero denominator need
+# only their tests (4 and 3), as this run's data says.  The float
+# boundary adds a multiply and a rounding cast for each float in and a
+# cast and a multiply out (BOUNDARY a pair); the Q8.24 rung also |y|,
+# |x|, their max, s's compare and select, and one IEEE division (the
+# larger operand's quotient is +-1): a reciprocal and five multiply-adds,
+# its fast path.
+BOUNDARY, DIVISION = 6, 6
+NORMALISE = 5 + DIVISION
+
+
 def atan2_ops(y, x, iterations: int) -> float:
     zero = int(((y == 0) & (x == 0)).sum())
     return 4.0 * zero + (y.numel() - zero) * (16 + ILOG2 + 2 * SHIFT + STEP * iterations)
@@ -346,7 +433,7 @@ def atan2_ops(y, x, iterations: int) -> float:
 
 def div_ops(num, den, iterations: int) -> float:
     zero = int((den == 0).sum())
-    return 3.0 * zero + (num.numel() - zero) * (20 + 2 * ILOG2 + 3 * SHIFT + _lindiv(iterations))
+    return 3.0 * zero + (num.numel() - zero) * (20 + 2 * ILOG2 + 3 * SHIFT + 5 * iterations)
 
 
 def k3_ops(iterations: int = 16, rope: bool = False) -> int:
@@ -371,10 +458,12 @@ def k5_in_domain(op: str, n: int, gen):
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(gen):
+def check_kernels(gen, strict: bool):
     """Returns {kernel name: record} with the record of each kernel's
-    main-path shape with the most work (K5: tanh, the op serving runs);
-    raises Failure on any disagreement."""
+    main-path shape with the most work (K5: tanh, the op serving runs;
+    K6's and K7's float entries a record each); raises Failure on any
+    disagreement.  ``strict``: the tree must have the float entries (a
+    checkout given by --root may predate them)."""
     import torch
 
     from repro_torch.core.qformat import Q16_16, from_fixed
@@ -722,38 +811,114 @@ def check_kernels(gen):
     rec["library"] = "torch.div on f32 (float analogue, not the same bits)"
     rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * x.numel(), div_ops(y, x, 17), "int32")
     emit({"phase": "kernels", "kernel": "div_q16", **rec})
-    records["div_q16"] = rec
+    keep("div_q16", rec)
+
+    # counts outside the compiled schedules (the per-element route), on
+    # a slice of the words and on the edge grid
+    ys, xs = y[: 1 << 20], x[: 1 << 20]
+    for it, fb in ((7, 16), (32, 16), (7, 24), (32, 24), (16, 24)):
+        require(torch.equal(atan2_q16(ys, xs, it, fb), atan2_q16_plain(ys, xs, it, fb))
+                and torch.equal(atan2_q16(ey, ex, it, fb), atan2_q16_plain(ey, ex, it, fb)),
+                f"atan2_q16 iterations={it} frac_bits={fb} differs from its plain version")
+    for it in (9, 32):
+        require(torch.equal(div_q16(ys, xs, it), div_q16_plain(ys, xs, it))
+                and torch.equal(div_q16(ey, ex, it), div_q16_plain(ey, ex, it)),
+                f"div_q16 iterations={it} differs from its plain version")
+    emit({"phase": "kernels", "kernel": "atan2_q16 / div_q16", "case": "generic counts on "
+          f"2**20 pairs + {ey.numel()} edge pairs", "atan2": [[7, 16], [32, 16], [7, 24],
+          [32, 24], [16, 24]], "div": [9, 32], "bit_exact": True})
+
+    from repro_torch.kernels import cordic as kc
+
+    has_float = all(hasattr(kc, n) for n in FLOAT_ENTRIES)
+    require(has_float or not strict, f"the float entries {FLOAT_ENTRIES} are missing")
+    if has_float:
+        check_float_entries(kc, xf, yf, keep)
     return records
+
+
+def check_float_entries(kc, xf, yf, keep):
+    """K6's and K7's float entries (the engine's atan2 at q16_16 and q8_24,
+    its div) against their plain versions, the to_fixed -> kernel ->
+    from_fixed chain, on the card: 2**24 floats (Q16.16 grid values of
+    the whole word range) and the float edge grid, NaN and +-inf
+    included, bit for bit; at the engine's counts and, on a slice,
+    generic ones."""
+    import numpy as np
+    import torch
+
+    e = torch.tensor(np.array(kc.FLOAT_EDGES, dtype=np.float32), device=xf.device)
+    fy, fx = (t.reshape(-1).contiguous() for t in torch.meshgrid(e, e, indexing="ij"))
+    ys, xs = yf[: 1 << 20], xf[: 1 << 20]
+    cases = (("atan2_f32", kc.atan2_f32, kc.atan2_f32_plain, 16, (7, 32), torch.atan2),
+             ("atan2_24_f32", kc.atan2_24_f32, kc.atan2_24_f32_plain, 24, (7, 32, 16),
+              torch.atan2),
+             ("div_f32", kc.div_f32, kc.div_f32_plain, 17, (9, 32), torch.div))
+    bits = lambda t: t.view(torch.int32)  # noqa: E731  (-0.0 is not 0.0)
+    for name, fn, plain, it, generic, lib in cases:
+        got, want = fn(yf, xf, it), plain(yf, xf, it)
+        exact = (torch.equal(bits(got), bits(want))
+                 and torch.equal(bits(fn(fy, fx, it)), bits(plain(fy, fx, it))))
+        for g in generic:
+            exact = exact and torch.equal(bits(fn(ys, xs, g)), bits(plain(ys, xs, g)))
+            exact = exact and torch.equal(bits(fn(fy, fx, g)), bits(plain(fy, fx, g)))
+        rec = {"case": f"iterations={it} 2**24 float pairs + {fy.numel()} float edge pairs "
+                       f"(NaN, inf, -0.0, subnormals, halves, +-32768); generic {list(generic)} "
+                       "on 2**20", "bit_exact": exact,
+               "max_abs_err": (got.double() - want.double()).abs().max().item()}
+        require(exact, f"{name} {rec['case']} differs from its plain version")
+        rec["ms"] = time_ms(lambda: fn(yf, xf, it))
+        rec["plain_ms"] = time_ms(lambda: plain(yf, xf, it), iters=2, warmup=1)
+        rec["library_ms"] = time_ms(lambda: lib(yf, xf))
+        rec["library"] = f"torch.{lib.__name__} on f32 (float analogue, not the same bits)"
+        # (0, 0) and a zero denominator are the same words as floats
+        ops = div_ops(yf, xf, it) if name == "div_f32" else atan2_ops(yf, xf, it)
+        ops += xf.numel() * (BOUNDARY + (NORMALISE if name == "atan2_24_f32" else 0))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * xf.numel(), ops, "int32")
+        emit({"phase": "kernels", "kernel": name, **rec})
+        keep(name, rec)
 
 
 # ---------------------------------------------------------------------------
 # launch counters
 # ---------------------------------------------------------------------------
 
+#: K6's and K7's float entries: the same kernels reading and writing f32
+FLOAT_ENTRIES = ("atan2_f32", "atan2_24_f32", "div_f32")
+#: rows of the kernels line: K1-K7 (K6 and K7 counting the launches of all
+#: their entries), then the float entries, each with its own launches
 KERNELS = ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention", "universal_unary",
-           "atan2_q16", "div_q16")
+           "atan2_q16", "div_q16") + FLOAT_ENTRIES
 
 
 def _wrappers():
-    from repro_torch.kernels.cordic import (
-        atan2_q16,
-        cordic_sincos,
-        div_q16,
-        rope_sincos_q16,
-        universal_unary,
-    )
+    """{row of the kernels line: its wrappers}: each wrapper counts the
+    launches it makes (K3's elementwise and RoPE forms; K6's and K7's
+    int32 and float entries, where the tree has them; a float entry also
+    on its own)."""
+    from repro_torch.kernels import cordic as kc
     from repro_torch.kernels.flashattn import flash_attention
     from repro_torch.kernels.fused_mlp import fused_swiglu
     from repro_torch.kernels.qmatmul import qmatmul
 
+    def entries(*names):
+        return tuple(getattr(kc, n) for n in names if hasattr(kc, n))
+
     return {"qmatmul": (qmatmul,), "fused_swiglu": (fused_swiglu,),
-            "cordic_sincos": (cordic_sincos, rope_sincos_q16),
-            "flash_attention": (flash_attention,), "universal_unary": (universal_unary,),
-            "atan2_q16": (atan2_q16,), "div_q16": (div_q16,)}
+            "cordic_sincos": (kc.cordic_sincos, kc.rope_sincos_q16),
+            "flash_attention": (flash_attention,), "universal_unary": (kc.universal_unary,),
+            "atan2_q16": entries("atan2_q16", "atan2_f32", "atan2_24_f32"),
+            "div_q16": entries("div_q16", "div_f32"),
+            **{name: entries(name) for name in FLOAT_ENTRIES}}
 
 
 def _launch_counts():
     return {name: sum(fn.launches for fn in fns) for name, fns in _wrappers().items()}
+
+
+def _entry_counts():
+    """{wrapper name: launches} of every wrapper."""
+    return {fn.__name__: fn.launches for fns in _wrappers().values() for fn in fns}
 
 
 def _reset_launch_counts():
@@ -772,9 +937,12 @@ def _reset_launch_counts():
 ENGINE_OPS = ("atan2", "div", "sqrt", "exp", "log", "tanh", "sigmoid", "sin", "cos")
 
 
-def engine_phase(seed: int):
+def engine_phase(seed: int, strict: bool):
     """Every new engine op on CUDA tensors at q16_16, f32 and under a
-    per-op policy; returns the K3 and K5-K7 launches of the run."""
+    per-op policy; returns the K3 and K5-K7 launches of the run (K6's and
+    K7's also by float entry) and the launches of every wrapper.
+    ``strict``: K6 and K7 must run through their float entries only (a
+    checkout given by --root may predate them)."""
     import torch
 
     from repro_torch.core.cordic import ITER_Q24
@@ -848,7 +1016,7 @@ def engine_phase(seed: int):
     with eng.at(policy):
         pinned = {op: eng.call(op, *args) for op, args in inputs.items()}
     torch.cuda.synchronize()
-    launches = _launch_counts()
+    launches, by_entry = _launch_counts(), _entry_counts()
     with eng.at("f32"):
         exact = {op: eng.call(op, *args) for op, args in inputs.items()}
 
@@ -883,6 +1051,8 @@ def engine_phase(seed: int):
     err24 = (pinned["atan2"].double() - torch.atan2(y.double(), x.double())).abs().max().item()
     out["atan2@q8_24"] = {"bit_exact": torch.equal(pinned["atan2"], want24),
                           "max_err_vs_f64": err24}
+    with eng.at(policy):
+        out["atan2@q8_24"]["ms"] = time_ms(lambda: eng.call("atan2", y, x), iters=5, warmup=1)
     require(out["atan2@q8_24"]["bit_exact"], "engine atan2 under the policy differs from q8_24")
     require(err24 <= 1e-6 + 2.0 ** -24, f"engine atan2 at q8_24: error {err24} > 1e-6 + 2**-24")
     # the policy's sin / cos: K3 with 24 iterations on Q8.24 angles, held
@@ -900,14 +1070,23 @@ def engine_phase(seed: int):
         require(err <= 2e-6, f"engine {op} at q8_24: error {err} > 2e-6")
 
     emit({"phase": "engine", "elements": N_WORDS, "ops": out, "launches": launches,
-          "policy": repr(policy), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "launches_by_entry": by_entry, "policy": repr(policy),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for name in ("cordic_sincos", "universal_unary", "atan2_q16", "div_q16"):
         require(launches[name] > 0, f"kernel {name} was not launched by the engine")
     # 5 unary ops twice (q16_16, policy), atan2, div, sin and cos twice each
     require(launches["universal_unary"] == 10 and launches["atan2_q16"] == 2
             and launches["div_q16"] == 2 and launches["cordic_sincos"] == 4,
             f"engine launches {launches}")
-    return {k: launches[k] for k in ("cordic_sincos", "universal_unary", "atan2_q16", "div_q16")}
+    # K6 and K7 through their float entries: the q16_16 atan2, the
+    # policy's q8_24 atan2 and div at q16_16 twice; none through the int32
+    # entries, so no eager float boundary around them
+    if strict:
+        k67 = {k: by_entry.get(k) for k in ("atan2_q16", "div_q16") + FLOAT_ENTRIES}
+        require(k67 == {"atan2_q16": 0, "atan2_f32": 1, "atan2_24_f32": 1, "div_q16": 0,
+                        "div_f32": 2}, f"engine launches of K6's and K7's entries {k67}")
+    paths = ("cordic_sincos", "universal_unary", "atan2_q16", "div_q16") + FLOAT_ENTRIES
+    return {k: launches[k] for k in paths if k in launches}, by_entry
 
 
 # ---------------------------------------------------------------------------
@@ -1124,6 +1303,14 @@ REPLACES = {
                   "src/repro/kernels/cordic/universal.py:55"),
     "div_q16": ("src/repro_torch/kernels/csrc/universal.cu",
                 "src/repro/kernels/cordic/universal.py:59"),
+    # the float entries: the same TPU kernels, whose jitted float boundary
+    # they take in
+    "atan2_f32": ("src/repro_torch/kernels/csrc/universal.cu",
+                  "src/repro/kernels/cordic/universal.py:55"),
+    "atan2_24_f32": ("src/repro_torch/kernels/csrc/universal.cu",
+                     "src/repro/kernels/cordic/universal.py:55"),
+    "div_f32": ("src/repro_torch/kernels/csrc/universal.cu",
+                "src/repro/kernels/cordic/universal.py:59"),
 }
 
 
@@ -1185,14 +1372,14 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(args.seed)
     torch.cuda.reset_peak_memory_stats()
-    records = check_kernels(gen)
+    records = check_kernels(gen, strict=root == ROOT)
     emit({"phase": "kernels", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "elapsed_s": time.perf_counter() - t_start})
-    by_path = {}
+    by_path, by_entry = {}, {}
     if args.only != "kernels":
         gc.collect()
         torch.cuda.empty_cache()
-        by_path["engine"] = engine_phase(args.seed)
+        by_path["engine"], by_entry = engine_phase(args.seed, strict=root == ROOT)
     if args.only is None:
         gc.collect()
         torch.cuda.empty_cache()
@@ -1205,12 +1392,17 @@ def main(argv=None) -> int:
 
     kernels = []
     for name in KERNELS:
+        if name not in records and root != ROOT:
+            continue  # another checkout without the float entries
         src, rep = REPLACES[name]
         r = records[name]
         paths = {p: c[name] for p, c in by_path.items() if name in c}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(paths.values()) if by_path else None, "launches_by_path": paths,
+            **({"engine_launches_by_entry": {fn.__name__: by_entry.get(fn.__name__, 0)
+                                             for fn in _wrappers()[name]}}
+               if name in ("atan2_q16", "div_q16") and by_entry else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": r["case"],

@@ -2,9 +2,11 @@
 
 Reference: ``src/repro/kernels/cordic/ops.py``.  Floats are quantized to
 Q16.16 (``core.qformat.to_fixed``), go through K3 (``sincos``,
-``rope_tables``), K6 (``atan2``), K7 (``div``) or K5 (``unary_op``) —
-the kernel on a CUDA tensor, its plain version on a CPU tensor — and
-come back as float32.  ``atan2_24`` is the engine's ``q8_24`` atan2
+``rope_tables``) or K5 (``unary_op``) — the kernel on a CUDA tensor, its
+plain version on a CPU tensor — and come back as float32.  K6
+(``atan2``) and K7 (``div``) take the float boundary inside: their float
+entries read and write float32 in one pass, bit for bit that chain.
+``atan2_24`` is the engine's ``q8_24`` atan2
 (``src/repro/core/cordic.py::cordic_atan2_24``) on K6.
 """
 
@@ -13,9 +15,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.cordic import HYPER_STAGES, ITER_Q24, exact_rope_phase_q16
-from repro_torch.core.qformat import Q8_24, Q16_16, from_fixed, to_fixed
+from repro_torch.core.qformat import Q16_16, from_fixed, to_fixed
 from repro_torch.kernels.cordic.cordic import cordic_sincos
-from repro_torch.kernels.cordic.universal import atan2_q16, div_q16, universal_unary
+from repro_torch.kernels.cordic.universal import atan2_24_f32, atan2_f32, div_f32, universal_unary
 
 __all__ = ["sincos", "rope_tables", "atan2", "atan2_24", "div", "unary_op"]
 
@@ -38,28 +40,26 @@ def rope_tables(positions, f_hi, f_lo, iterations: int = 16, dtype=torch.float32
     return from_fixed(sin_q, Q16_16, dtype=dtype), from_fixed(cos_q, Q16_16, dtype=dtype)
 
 
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.float32).contiguous()
+
+
 def atan2(y, x, iterations: int = 16):
-    """float (y, x) -> atan2 float32 through K6."""
-    return from_fixed(atan2_q16(_q(y), _q(x), iterations=iterations), Q16_16)
+    """float (y, x) -> atan2 float32 through K6, Q16.16 inside."""
+    return atan2_f32(_f32(y), _f32(x), iterations=iterations)
 
 
 def atan2_24(y, x, iterations: int = ITER_Q24):
     """float (y, x) -> atan2 float32 on the Q8.24 grid through K6.  The
     operands are normalised by max(|y|, |x|) first, so any f32 magnitude
     fits the Q8.24 word (atan2 is scale-invariant)."""
-    y = torch.as_tensor(y).to(torch.float32)
-    x = torch.as_tensor(x).to(torch.float32)
-    m = torch.maximum(y.abs(), x.abs())
-    s = torch.where(m > 0, m, torch.ones_like(m))
-    out = atan2_q16(to_fixed(y / s, Q8_24).contiguous(), to_fixed(x / s, Q8_24).contiguous(),
-                    iterations=iterations, frac_bits=24)
-    return from_fixed(out, Q8_24)
+    return atan2_24_f32(_f32(y), _f32(x), iterations=iterations)
 
 
 def div(num, den, iterations: int = 17):
     """float (num, den) -> num / den float32 through K7 (saturates at the
     Q16.16 envelope)."""
-    return from_fixed(div_q16(_q(num), _q(den), iterations=iterations), Q16_16)
+    return div_f32(_f32(num), _f32(den), iterations=iterations)
 
 
 def unary_op(w, op: str, stages: int = HYPER_STAGES):

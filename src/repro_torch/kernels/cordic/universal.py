@@ -10,9 +10,16 @@ Each wrapper runs its plain PyTorch version (the bodies of
 ``core.cordic``, which the reference kernels run too) for a CPU tensor
 and launches its kernel for a CUDA tensor — the same bits either way —
 and counts its launches.  Inputs are int32 of any shape; the kernels
-walk the flat words one thread per element, so there is no block
-padding to keep total (the reference pads with 0, on which every op is
-defined).
+walk the flat words, so there is no block padding to keep total (the
+reference pads with 0, on which every op is defined).
+
+K6 and K7 also have float entries, the engine's ``q16_16`` and ``q8_24``
+ops in one pass: :func:`atan2_f32`, :func:`atan2_24_f32` and
+:func:`div_f32` read float32 and write float32, and are bit for bit the
+chain ``core.qformat.to_fixed`` -> the integer kernel -> ``from_fixed``
+(``atan2_24_f32`` normalises by max(|y|, |x|) first, as
+``src/repro/core/cordic.py::cordic_atan2_24``) run on the same device;
+that chain is their plain version.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
 from repro_torch.core.cordic import (
     HYPER_STAGES,
+    ITER_Q24,
     angle_consts,
     atan2_q16_body,
     atan_table,
@@ -38,6 +46,7 @@ from repro_torch.core.cordic import (
     sqrt_q16_body,
     tanh_q16_body,
 )
+from repro_torch.core.qformat import Q8_24, Q16_16, from_fixed, to_fixed
 
 __all__ = [
     "UNARY_OPS",
@@ -47,6 +56,13 @@ __all__ = [
     "atan2_q16_plain",
     "div_q16",
     "div_q16_plain",
+    "atan2_f32",
+    "atan2_f32_plain",
+    "atan2_24_f32",
+    "atan2_24_f32_plain",
+    "div_f32",
+    "div_f32_plain",
+    "FLOAT_EDGES",
 ]
 
 #: op name -> elementwise Q16.16 body (the kernel's op code is the index)
@@ -66,9 +82,9 @@ _P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _I32S = ctypes.POINTER(ctypes.c_int32)
 #: repro_universal_unary(in, out, n, op, shift, atanh, stages, k_h_inv, stream)
 _UNARY_ARGS = (_P, _P, _N, _I, _I32S, _I32S, _I, _I, _P)
-#: repro_universal_atan2(y, x, out, n, table, iterations, pi, stream)
+#: repro_universal_atan2[_f32 | _24_f32](y, x, out, n, table, iterations, pi, stream)
 _ATAN2_ARGS = (_P, _P, _P, _N, _I32S, _I, _I, _P)
-#: repro_universal_div(num, den, out, n, iterations, stream)
+#: repro_universal_div[_f32](num, den, out, n, iterations, stream)
 _DIV_ARGS = (_P, _P, _P, _N, _I, _P)
 
 
@@ -77,12 +93,12 @@ def _check_op(op: str) -> None:
         raise ValueError(f"unknown universal op {op!r}; have {sorted(UNARY_OPS)}")
 
 
-def _route(name: str, *ts: torch.Tensor) -> bool:
+def _route(name: str, *ts: torch.Tensor, dtype: torch.dtype = torch.int32) -> bool:
     """True for the kernel (CUDA), False for the plain version (CPU);
     raises on anything the kernel does not take."""
     for t in ts:
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: int32 operands required, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {dtype} operands required, got {t.dtype}")
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"{name}: operands on several devices")
     if len({tuple(t.shape) for t in ts}) != 1:
@@ -114,6 +130,53 @@ def div_q16_plain(num_q, den_q, iterations: int = 17):
     return div_q16_body(num_q, den_q, iterations)
 
 
+def atan2_f32_plain(y, x, iterations: int = 16):
+    """The plain version of K6's Q16.16 float entry (any device)."""
+    return from_fixed(atan2_q16_body(to_fixed(y, Q16_16), to_fixed(x, Q16_16), iterations, 16),
+                      Q16_16)
+
+
+#: the smallest normal float32
+_F32_TINY = 2.0 ** -126
+
+#: float32 values at the edges of the float entries' boundary, which their
+#: checks pair every way: NaN, +-inf, +-0, subnormals, the smallest
+#: normal, halves of the Q16.16 and Q8.24 grids, +-32768 (the Q16.16
+#: saturation) and its neighbours, the f32 extremes
+FLOAT_EDGES = (
+    0.0, -0.0, float("nan"), float("inf"), float("-inf"), 1e-45, -1e-45, 1e-40, -1e-40,
+    _F32_TINY, 2.0**-17, -(2.0**-17), 3 * 2.0**-17, -3 * 2.0**-17, 0.5 / 65536, 1.5 / 65536,
+    -2.5 / 65536, 1000.5 / 65536, 2.0**-25, 3 * 2.0**-25, -(2.0**-25), 1.0, -1.0, 0.5, 32768.0,
+    -32768.0, 32767.998046875, 32768.00390625, -32767.998046875, -32768.00390625, 65536.0,
+    -65536.0, 3.4e38, -3.4e38, 123.456, -7.25,
+)
+
+
+def _flush_subnormals(v: torch.Tensor) -> torch.Tensor:
+    """Subnormal operands as zero, as XLA computes the reference (on the
+    TPU and on the CPU alike); a NaN stays."""
+    return torch.where(v.abs() < _F32_TINY, torch.zeros_like(v), v)
+
+
+def atan2_24_f32_plain(y, x, iterations: int = ITER_Q24):
+    """The plain version of K6's Q8.24 float entry (any device): the
+    operands normalised by max(|y|, |x|), so any f32 magnitude fits the
+    Q8.24 word (atan2 is scale-invariant).  Subnormal operands count as
+    zero, as in the reference: only this normalisation can tell them
+    apart (2**-149 / 2**-149 is 1), the Q16.16 rounding makes them 0."""
+    y, x = _flush_subnormals(y), _flush_subnormals(x)
+    m = torch.maximum(y.abs(), x.abs())
+    s = torch.where(m > 0, m, torch.ones_like(m))
+    out = atan2_q16_body(to_fixed(y / s, Q8_24), to_fixed(x / s, Q8_24), iterations, 24)
+    return from_fixed(out, Q8_24)
+
+
+def div_f32_plain(num, den, iterations: int = 17):
+    """The plain version of K7's float entry (any device)."""
+    return from_fixed(div_q16_body(to_fixed(num, Q16_16), to_fixed(den, Q16_16), iterations),
+                      Q16_16)
+
+
 @functools.lru_cache(maxsize=None)
 def _hyper_params(stages: int):
     if not 0 <= stages <= MAX_STAGES:
@@ -128,7 +191,7 @@ def _hyper_params(stages: int):
 @functools.lru_cache(maxsize=None)
 def _atan_params(iterations: int, frac_bits: int):
     if not 0 <= iterations <= MAX_ITERATIONS:
-        raise ValueError(f"atan2_q16: iterations {iterations} outside [0, {MAX_ITERATIONS}]")
+        raise ValueError(f"atan2: iterations {iterations} outside [0, {MAX_ITERATIONS}]")
     table = (ctypes.c_int32 * max(iterations, 1))(*[int(v) for v in atan_table(iterations, frac_bits)])
     return table, angle_consts(frac_bits)[0]
 
@@ -153,24 +216,55 @@ def universal_unary(w_q: torch.Tensor, op: str, stages: int = HYPER_STAGES) -> t
 universal_unary.launches = 0
 
 
+def _atan2(entry, export: str, y, x, iterations: int, frac_bits: int) -> torch.Tensor:
+    """Launch K6 through the C export ``export``, counted on ``entry``."""
+    table, pi = _atan_params(iterations, frac_bits)
+    out = torch.empty_like(y)
+    if y.numel():
+        rc = kernel_function("universal", export, _ATAN2_ARGS)(
+            ptr(y), ptr(x), ptr(out), y.numel(), table, iterations, pi, current_stream(y))
+        check_launch("universal", rc, entry.__name__)
+        entry.launches += 1
+    return out
+
+
+def _div(entry, export: str, num, den, iterations: int) -> torch.Tensor:
+    """Launch K7 through the C export ``export``, counted on ``entry``."""
+    if not 0 <= iterations <= MAX_ITERATIONS:
+        raise ValueError(f"{entry.__name__}: iterations {iterations} outside "
+                         f"[0, {MAX_ITERATIONS}]")
+    out = torch.empty_like(num)
+    if num.numel():
+        rc = kernel_function("universal", export, _DIV_ARGS)(
+            ptr(num), ptr(den), ptr(out), num.numel(), iterations, current_stream(num))
+        check_launch("universal", rc, entry.__name__)
+        entry.launches += 1
+    return out
+
+
 def atan2_q16(y_q: torch.Tensor, x_q: torch.Tensor, iterations: int = 16,
               frac_bits: int = 16) -> torch.Tensor:
     """atan2(y, x) on int32 Q(m.n) words of one shape, through K6;
     ``frac_bits`` is the output angle format (24: the Q8.24 rung)."""
     if not _route("atan2_q16", y_q, x_q):
         return atan2_q16_plain(y_q, x_q, iterations, frac_bits)
-    table, pi = _atan_params(iterations, frac_bits)
-    out = torch.empty_like(y_q)
-    if y_q.numel():
-        rc = kernel_function("universal", "repro_universal_atan2", _ATAN2_ARGS)(
-            ptr(y_q), ptr(x_q), ptr(out), y_q.numel(), table, iterations, pi,
-            current_stream(y_q))
-        check_launch("universal", rc, "atan2_q16")
-        atan2_q16.launches += 1
-    return out
+    return _atan2(atan2_q16, "repro_universal_atan2", y_q, x_q, iterations, frac_bits)
 
 
-atan2_q16.launches = 0
+def atan2_f32(y: torch.Tensor, x: torch.Tensor, iterations: int = 16) -> torch.Tensor:
+    """The engine's ``q16_16`` atan2 on float32 tensors of one shape, in
+    one K6 pass: Q16.16 operands, angle and result."""
+    if not _route("atan2_f32", y, x, dtype=torch.float32):
+        return atan2_f32_plain(y, x, iterations)
+    return _atan2(atan2_f32, "repro_universal_atan2_f32", y, x, iterations, 16)
+
+
+def atan2_24_f32(y: torch.Tensor, x: torch.Tensor, iterations: int = ITER_Q24) -> torch.Tensor:
+    """The engine's ``q8_24`` atan2 on float32 tensors of one shape, in
+    one K6 pass: operands normalised by max(|y|, |x|), Q8.24 words."""
+    if not _route("atan2_24_f32", y, x, dtype=torch.float32):
+        return atan2_24_f32_plain(y, x, iterations)
+    return _atan2(atan2_24_f32, "repro_universal_atan2_24_f32", y, x, iterations, 24)
 
 
 def div_q16(num_q: torch.Tensor, den_q: torch.Tensor, iterations: int = 17) -> torch.Tensor:
@@ -178,15 +272,16 @@ def div_q16(num_q: torch.Tensor, den_q: torch.Tensor, iterations: int = 17) -> t
     through K7 (den == 0 saturates, 0 / 0 = 0)."""
     if not _route("div_q16", num_q, den_q):
         return div_q16_plain(num_q, den_q, iterations)
-    if not 0 <= iterations <= MAX_ITERATIONS:
-        raise ValueError(f"div_q16: iterations {iterations} outside [0, {MAX_ITERATIONS}]")
-    out = torch.empty_like(num_q)
-    if num_q.numel():
-        rc = kernel_function("universal", "repro_universal_div", _DIV_ARGS)(
-            ptr(num_q), ptr(den_q), ptr(out), num_q.numel(), iterations, current_stream(num_q))
-        check_launch("universal", rc, "div_q16")
-        div_q16.launches += 1
-    return out
+    return _div(div_q16, "repro_universal_div", num_q, den_q, iterations)
 
 
-div_q16.launches = 0
+def div_f32(num: torch.Tensor, den: torch.Tensor, iterations: int = 17) -> torch.Tensor:
+    """The engine's ``q16_16`` division on float32 tensors of one shape,
+    in one K7 pass (saturates at the Q16.16 envelope)."""
+    if not _route("div_f32", num, den, dtype=torch.float32):
+        return div_f32_plain(num, den, iterations)
+    return _div(div_f32, "repro_universal_div_f32", num, den, iterations)
+
+
+atan2_q16.launches = atan2_f32.launches = atan2_24_f32.launches = 0
+div_q16.launches = div_f32.launches = 0

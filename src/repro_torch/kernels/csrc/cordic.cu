@@ -24,7 +24,7 @@
 //     any other `iterations` <= 32;
 //   * a thread carries ILP angles through the steps together (16-byte
 //     loads and stores), the sign of each step a +-1 factor (IMAD).
-#include "common.cuh"
+#include "cordic.cuh"
 
 namespace {
 
@@ -38,33 +38,6 @@ struct CordicParams {
   uint32_t recip;  // floor(2**32 / two_pi)
   uint32_t wrap;   // 2**31 mod two_pi
 };
-
-// atan_table(16, 16) and atan_table(24, 24): round(atan(2**-i) * 2**f);
-// from i = 6 (f = 16) and 8 (f = 24) on the entry is 2**(f - i)
-__host__ __device__ constexpr int32_t atan_at(int frac, int i) {
-  if (frac == 16) {
-    switch (i) {
-      case 0: return 51472;
-      case 1: return 30386;
-      case 2: return 16055;
-      case 3: return 8150;
-      case 4: return 4091;
-      case 5: return 2047;
-      default: return int32_t{1} << (16 - i);
-    }
-  }
-  switch (i) {
-    case 0: return 13176795;
-    case 1: return 7778716;
-    case 2: return 4110060;
-    case 3: return 2086331;
-    case 4: return 1047214;
-    case 5: return 524117;
-    case 6: return 262123;
-    case 7: return 131069;
-    default: return int32_t{1} << (24 - i);
-  }
-}
 
 // floor-mod of theta + pi (wrapping) into [0, two_pi), minus pi.  a =
 // (theta + pi) + 2**31 is the dividend as an unsigned word; its quotient
@@ -109,7 +82,7 @@ __device__ __forceinline__ void rotate(int32_t (&x)[V], int32_t (&y)[V], int32_t
   if constexpr (ITER > 0) {
 #pragma unroll
     for (int i = 0; i < ITER; ++i) {
-      const int32_t t = atan_at(FRAC, i);
+      const int32_t t = rq::atan_at(FRAC, i);
 #pragma unroll
       for (int e = 0; e < V; ++e) circ_step(x[e], y[e], z[e], i, t);
     }
@@ -213,7 +186,7 @@ template <int FRAC, int ITER>
 bool compiled_table(const CordicParams& p) {
   if (p.iterations != ITER) return false;
   for (int i = 0; i < ITER; ++i)
-    if (p.table[i] != atan_at(FRAC, i)) return false;
+    if (p.table[i] != rq::atan_at(FRAC, i)) return false;
   return true;
 }
 

@@ -11,7 +11,8 @@
 // compile time); K5's kernel for any other `stages` the reference
 // accepts passes HyperParams by value.  K5's kernels for the default
 // schedule and the tests' 13 stages run the lean batch steps at the end
-// of this file, with shifts and atanh constants as immediates.
+// of this file, with shifts and atanh constants as immediates; the
+// circular atan tables of K3 and K6 (16 and 24 entries) are there too.
 #pragma once
 
 #include "common.cuh"
@@ -378,5 +379,35 @@ __device__ __forceinline__ void linear_div_n(const int32_t (&num)[ILP], const in
 #pragma unroll
   for (int e = 0; e < ILP; ++e) out[e] = static_cast<int32_t>(2u * c[e] + ((1u << 17) - 1u));
 }
+
+// atan_table(16, 16) and atan_table(24, 24): round(atan(2**-i) * 2**f);
+// from i = 6 (f = 16) and 8 (f = 24) on the entry is 2**(f - i)
+__host__ __device__ constexpr int32_t atan_at(int frac, int i) {
+  if (frac == 16) {
+    switch (i) {
+      case 0: return 51472;
+      case 1: return 30386;
+      case 2: return 16055;
+      case 3: return 8150;
+      case 4: return 4091;
+      case 5: return 2047;
+      default: return int32_t{1} << (16 - i);
+    }
+  }
+  switch (i) {
+    case 0: return 13176795;
+    case 1: return 7778716;
+    case 2: return 4110060;
+    case 3: return 2086331;
+    case 4: return 1047214;
+    case 5: return 524117;
+    case 6: return 262123;
+    case 7: return 131069;
+    default: return int32_t{1} << (24 - i);
+  }
+}
+
+// round(pi * 2**f) for the compiled atan tables' formats
+__host__ __device__ constexpr int32_t pi_at(int frac) { return frac == 16 ? 205887 : 52707179; }
 
 }  // namespace rq

@@ -1,4 +1,5 @@
-// K5-K7: the universal CORDIC family, elementwise on int32 words.
+// K5-K7: the universal CORDIC family, elementwise on int32 words (K6 and
+// K7 also on f32 at the engine's float boundary).
 //
 // Replaces the three Pallas TPU kernels of
 // src/repro/kernels/cordic/universal.py:
@@ -16,10 +17,15 @@
 // the reference's (XLA's) wrapping adds and shift semantics.  Every op
 // is total on any int32 input (0, RAW_MIN, RAW_MAX, negatives).
 //
+// K6 and K7 also read and write f32 at the engine's float boundary
+// (core.qformat.to_fixed, the kernel, from_fixed, as ops.atan2,
+// ops.atan2_24 and ops.div compose them), so an engine op is one pass.
+//
 // Bound on the H100: integer operations (a live element costs 100-300:
-// 20 stages of 2 shifts, a sign and 2-3 updates, the normalisation and,
-// for tanh and sigmoid, a 17-step division); the 8 bytes an element
-// moves take ~0.04 ms at 2**24 words.
+// 16-24 circular or 20 hyperbolic steps of 2 shifts, a sign word and 2-3
+// updates, the normalisation and, for tanh and sigmoid, a 17-step
+// division); the 8 bytes a K5 element moves take ~0.04 ms at 2**24
+// words, the 12 of a K6 or K7 pair ~0.06 ms.
 //
 // K5's design.  Whether an element needs the CORDIC path depends on its
 // value (sqrt / log: w > 0; exp: inside (ln 2**-17, ln 32768); tanh and
@@ -36,6 +42,18 @@
 // and the tests' 13 run with shifts and atanh constants as immediates
 // (cordic.cuh's lean steps); any other `stages` runs the same tiles
 // through the per-element functions with the schedule passed by value.
+//
+// K6's and K7's design.  Every pair but (0, 0) and den == 0 is live, so
+// there is nothing to queue: a thread takes V pairs by one 16-byte load
+// of each operand, steps them together and stores 16 bytes, with no
+// shared memory.  The engine's counts (K6: 16 steps at frac 16, 24 at
+// frac 24; K7: 17) run with the atan entries and shifts as immediates,
+// a step's direction a +-1 sign word that scales the updates (IMAD), and
+// the early exits, the x < 0 fold-back and K7's saturation as selects;
+// any other count runs the same tiles through cordic.cuh's per-element
+// atan2_q / div_q16 with the count by value.
+#include <type_traits>
+
 #include "cordic.cuh"
 
 namespace {
@@ -364,24 +382,335 @@ __global__ void __launch_bounds__(THREADS) unary_kernel(const int32_t* __restric
   }
 }
 
-__global__ void atan2_kernel(const int32_t* __restrict__ y, const int32_t* __restrict__ x,
-                             int32_t* __restrict__ out, int64_t n, rq::AtanParams p) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    out[i] = rq::atan2_q(y[i], x[i], p);
+// ---------------------------------------------------------------------------
+// K6 and K7: V pairs a thread, straight through registers
+// ---------------------------------------------------------------------------
+
+// what a kernel reads and writes: int32 words, or f32 at the engine's
+// float boundary (Q16.16 words inside; K6 also as the Q8.24 rung, whose
+// operands are first normalised by max(|y|, |x|))
+enum Io { kWords = 0, kF32 = 1, kF32Norm = 2 };
+
+constexpr int V = 4;  // pairs a thread takes: one 16-byte load of each operand
+
+// core.qformat.to_fixed into a 32-bit format as torch runs it on the card:
+// rint(v * 2**f), clamped to [-2**31, 2**31 - 128] (a NaN passes), cast by
+// cvt.rzi (NaN gives 0), then RAW_MAX where the rounded value is >= 2**31
+// and RAW_MIN where it is < -2**31.  cvt.rni of v * 2**f is that word in
+// one instruction: it rounds half to even, saturates out of range and
+// gives 0 for NaN (v * 2**f is exact, subnormals included: no fast math).
+template <int FRAC>
+__device__ __forceinline__ int32_t to_fixed(float v) {
+  return __float2int_rn(v * static_cast<float>(1 << FRAC));
 }
 
-__global__ void div_kernel(const int32_t* __restrict__ num, const int32_t* __restrict__ den,
-                           int32_t* __restrict__ out, int64_t n, int iterations) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    out[i] = rq::div_q16(num[i], den[i], iterations);
+// core.qformat.from_fixed: int -> f32 (round to nearest), then the exact
+// power-of-two scale
+template <int FRAC>
+__device__ __forceinline__ float from_fixed(int32_t w) {
+  return static_cast<float>(w) * (1.0f / static_cast<float>(1 << FRAC));
 }
 
-int grid_for(long long n) {
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  // 132 SMs x 8 resident blocks of 256 threads, a few waves deep
-  return static_cast<int>(blocks < 132 * 8 * 4 ? blocks : 132 * 8 * 4);
+// ops.atan2_24's normalisation: subnormal operands as zero (as XLA runs
+// the reference), s = max(|y|, |x|) where that is > 0, else 1
+// (torch.maximum propagates a NaN, which then fails m > 0), and the
+// IEEE-rounded quotients y / s, x / s.  The larger operand's quotient is
+// known without a division: +-1, or itself where s = 1, or NaN where s is
+// inf (inf / inf); only the smaller one is divided.
+__device__ __forceinline__ void normalise(float& y, float& x) {
+  y = fabsf(y) < 1.17549435e-38f ? 0.0f : y;
+  x = fabsf(x) < 1.17549435e-38f ? 0.0f : x;
+  const float ay = fabsf(y), ax = fabsf(x), m = fmaxf(ay, ax);
+  const float s = m > 0.0f && !isnan(ay) && !isnan(ax) ? m : 1.0f;
+  const bool y_big = ay >= ax;  // false where either is NaN
+  const float big = y_big ? y : x;
+  const float q = __fdiv_rn(y_big ? x : y, s);
+  const float b = s == 1.0f ? big : (isinf(s) ? __int_as_float(0x7fffffff) : copysignf(1.0f, big));
+  y = y_big ? b : q;
+  x = y_big ? q : b;
+}
+
+__device__ __forceinline__ bool aligned16(const void* a, const void* b, const void* c) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c)) & 15) == 0;
+}
+
+// pairs [i0, i0 + V) as Q words of FRAC fraction bits (past n: 0, never
+// stored); `full`: the V pairs exist and every pointer is 16-byte aligned
+template <int IO, int FRAC>
+__device__ __forceinline__ void load_pairs(const void* pa, const void* pb, int64_t i0, int64_t n,
+                                           bool full, int32_t (&a)[V], int32_t (&b)[V]) {
+  using T = std::conditional_t<IO == kWords, int32_t, float>;
+  using T4 = std::conditional_t<IO == kWords, int4, float4>;
+  const T* ta = static_cast<const T*>(pa) + i0;
+  const T* tb = static_cast<const T*>(pb) + i0;
+  T va[V], vb[V];
+  if (full) {
+    const T4 qa = *reinterpret_cast<const T4*>(ta), qb = *reinterpret_cast<const T4*>(tb);
+    va[0] = qa.x, va[1] = qa.y, va[2] = qa.z, va[3] = qa.w;
+    vb[0] = qb.x, vb[1] = qb.y, vb[2] = qb.z, vb[3] = qb.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      va[e] = i0 + e < n ? ta[e] : T(0);
+      vb[e] = i0 + e < n ? tb[e] : T(0);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    if constexpr (IO == kWords) {
+      a[e] = va[e], b[e] = vb[e];
+    } else {
+      if constexpr (IO == kF32Norm) normalise(va[e], vb[e]);
+      a[e] = to_fixed<FRAC>(va[e]), b[e] = to_fixed<FRAC>(vb[e]);
+    }
+  }
+}
+
+template <int IO, int FRAC>
+__device__ __forceinline__ void store_results(void* po, int64_t i0, int64_t n, bool full,
+                                              const int32_t (&w)[V]) {
+  if constexpr (IO == kWords) {
+    int32_t* o = static_cast<int32_t*>(po) + i0;
+    if (full) {
+      *reinterpret_cast<int4*>(o) = make_int4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (i0 + e < n) o[e] = w[e];
+    }
+  } else {
+    float* o = static_cast<float*>(po) + i0;
+    float f[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) f[e] = from_fixed<FRAC>(w[e]);
+    if (full) {
+      *reinterpret_cast<float4*>(o) = make_float4(f[0], f[1], f[2], f[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (i0 + e < n) o[e] = f[e];
+    }
+  }
+}
+
+// The lean steps keep an SM's two integer pipes evenly loaded: shifts,
+// logic and LEA go to the ALU, IMAD to the FMA pipe, 64 lanes each.  A
+// step's sign word m = y >> 31 (0 or -1) gives d = 2m + 1 on the ALU and
+// -d = m (-2) - 1 on the FMA pipe, and Horner sums over m take c * 2 + m
+// there too.  The 2 and -2 come as kernel arguments (Twos): as literals,
+// or as one the negation of the other, ptxas turns those multiply-adds
+// into ALU shifts and logic.
+struct Twos {
+  uint32_t two, minus_two;
+};
+
+// (v << (30 - b)) >> r for 0 <= v's magnitude < 2**(b + 1), b in [0, 30]:
+// v * 2**(30 - b - r) with the reference's floor where that is a right
+// shift; the left shift stays inside 31 bits
+__device__ __forceinline__ int32_t norm_shift(int32_t v, int32_t b, int r) {
+  return static_cast<int32_t>(static_cast<uint32_t>(v) << (30 - b)) >> r;
+}
+
+// K6's lean steps: atan2_q with the N = FRAC entries of the atan table of
+// FRAC fraction bits compiled in, on V pairs; the result in y.  The (0, 0)
+// exit and the x < 0 fold-back are selects.  Entries P.. are 2**(FRAC -
+// i), so their part of z is sum_i (2 m_i + 1) 2**(FRAC - i) = TAIL + 4c
+// with c = sum_i m_i 2**(N - 1 - i), one Horner step each.
+template <int FRAC, int N>
+__device__ __forceinline__ void atan2_lean(int32_t (&y)[V], const int32_t (&x_in)[V], Twos k) {
+  static_assert(N == FRAC && (FRAC == 16 || FRAC == 24), "compiled tables: (16, 16), (24, 24)");
+  constexpr int P = FRAC == 16 ? 6 : 8;
+  constexpr uint32_t TAIL = (1u << (FRAC - P + 1)) - 2u;
+  int32_t x[V], turn[V];
+  uint32_t z[V], c[V];
+  bool zero[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const int32_t y0 = rq::imax(y[e], rq::RAW_MIN + 1), x0 = rq::imax(x_in[e], rq::RAW_MIN + 1);
+    zero[e] = (x0 | y0) == 0;
+    // x < 0: reflect through the origin, +-pi back at the end
+    const int32_t x1 = x0 < 0 ? -x0 : x0, y1 = x0 < 0 ? -y0 : y0;
+    turn[e] = x0 < 0 ? (y0 < 0 ? -rq::pi_at(FRAC) : rq::pi_at(FRAC)) : 0;
+    // max(|x|, |y|) to bit 28: v * 2**(28 - b), b = ilog2(max(|x|, |y|, 1))
+    const int32_t b = 31 - __clz(rq::imax(rq::imax(x1, y0 < 0 ? -y0 : y0), 1));
+    x[e] = norm_shift(x1, b, 2);
+    y[e] = norm_shift(y1, b, 2);
+    z[e] = 0;
+    c[e] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const uint32_t m = static_cast<uint32_t>(y[e] >> 31);
+      const uint32_t d = 2u * m + 1u, nd = m * k.minus_two + ~0u;  // +1 where y >= 0; -d
+      const uint32_t xs = static_cast<uint32_t>(x[e] >> i), ys = static_cast<uint32_t>(y[e] >> i);
+      x[e] = static_cast<int32_t>(static_cast<uint32_t>(x[e]) + d * ys);
+      y[e] = static_cast<int32_t>(static_cast<uint32_t>(y[e]) + nd * xs);
+      if (i < P)
+        z[e] += d * static_cast<uint32_t>(rq::atan_at(FRAC, i));
+      else
+        c[e] = c[e] * k.two + m;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    y[e] = zero[e] ? 0 : static_cast<int32_t>(z[e] + TAIL + 4u * c[e] + static_cast<uint32_t>(turn[e]));
+}
+
+// K7's lean steps: div_q16 with N <= 17 linear steps on V pairs, the
+// result in num.  Both magnitudes go to bit 29 by their ilog2, so the
+// denominator needs no second normalisation; the quotient sum_i d_i
+// 2**(16 - i) (d_i = +1 where y_i >= 0) is (2c + 2**N - 1) 2**(17 - N)
+// with c = sum_i m_i 2**(N - 1 - i); den == 0, the rounding shift and
+// the saturating exponent shift are selects.
+template <int N>
+__device__ __forceinline__ void div_lean(int32_t (&num)[V], const int32_t (&den_in)[V], Twos k) {
+  static_assert(N >= 1 && N <= 17, "the quotient's entries 2**(16 - i) must be whole");
+  int32_t x[V], y[V], ex[V];
+  uint32_t c[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const int32_t nm = rq::imax(num[e], rq::RAW_MIN + 1), dn = rq::imax(den_in[e], rq::RAW_MIN + 1);
+    const int32_t an = nm < 0 ? -nm : nm, ad = dn < 0 ? -dn : dn;
+    const int32_t bn = 31 - __clz(rq::imax(an, 1)), bd = 31 - __clz(rq::imax(ad, 1));
+    y[e] = norm_shift(an, bn, 1);  // an * 2**(29 - bn)
+    x[e] = norm_shift(ad, bd, 1);
+    ex[e] = bn - bd;  // in [-30, 30]
+    c[e] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const uint32_t m = static_cast<uint32_t>(y[e] >> 31);
+      // y >= 0: y -= xs; y < 0: y += xs
+      y[e] = static_cast<int32_t>(static_cast<uint32_t>(y[e]) +
+                                  (m * k.minus_two + ~0u) * static_cast<uint32_t>(x[e] >> i));
+      c[e] = c[e] * k.two + m;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const int32_t q = static_cast<int32_t>((2u * c[e] + ((1u << N) - 1u)) << (17 - N));
+    const int32_t nm = rq::imax(num[e], rq::RAW_MIN + 1), dn = den_in[e];
+    const int32_t cnt = rq::imax(-ex[e], 0), sl = rq::imax(ex[e], 0);
+    const int32_t zr = rq::wadd(q, (1 << cnt) >> 1) >> cnt;
+    const int32_t mag = zr <= (rq::RAW_MAX >> sl) ? static_cast<int32_t>(static_cast<uint32_t>(zr) << sl)
+                                                  : rq::RAW_MAX;
+    const int32_t sat = nm == 0 ? 0 : (nm > 0 ? rq::RAW_MAX : rq::RAW_MIN + 1);
+    num[e] = dn == 0 ? sat : ((nm ^ dn) < 0 ? -mag : mag);
+  }
+}
+
+// the compiled kernels take no table: they cannot load one
+struct NoTable {};
+template <int N>
+using AtanArg = std::conditional_t<N == 0, rq::AtanParams, NoTable>;
+
+// K6: thread t takes pairs [V t, V t + V).  N = 0: atan2_q per pair with
+// the table and pi in p (FRAC is then the float boundary's format only)
+template <int IO, int FRAC, int N>
+__global__ void __launch_bounds__(THREADS) atan2_kernel(const void* __restrict__ y,
+                                                        const void* __restrict__ x,
+                                                        void* __restrict__ out, int64_t n,
+                                                        AtanArg<N> p, Twos k) {
+  const int64_t i0 = (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) * V;
+  if (i0 >= n) return;
+  const bool full = i0 + V <= n && aligned16(y, x, out);
+  int32_t a[V], b[V];
+  load_pairs<IO, FRAC>(y, x, i0, n, full, a, b);
+  if constexpr (N == 0) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) a[e] = rq::atan2_q(a[e], b[e], p);
+  } else {
+    atan2_lean<FRAC, N>(a, b, k);
+  }
+  store_results<IO, FRAC>(out, i0, n, full, a);
+}
+
+// K7: as K6; N = 0: div_q16 per pair with `iterations` steps
+template <int IO, int N>
+__global__ void __launch_bounds__(THREADS) div_kernel(const void* __restrict__ num,
+                                                      const void* __restrict__ den,
+                                                      void* __restrict__ out, int64_t n,
+                                                      int iterations, Twos k) {
+  const int64_t i0 = (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) * V;
+  if (i0 >= n) return;
+  const bool full = i0 + V <= n && aligned16(num, den, out);
+  int32_t a[V], b[V];
+  load_pairs<IO, 16>(num, den, i0, n, full, a, b);
+  if constexpr (N == 0) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) a[e] = rq::div_q16(a[e], b[e], iterations);
+  } else {
+    div_lean<N>(a, b, k);
+  }
+  store_results<IO, 16>(out, i0, n, full, a);
+}
+
+constexpr Twos kTwos{2u, 0u - 2u};
+// K7's compiled step count: the reference's 17
+constexpr int DIV_STEPS = 17;
+
+unsigned pair_blocks(long long n) {
+  return static_cast<unsigned>(((n + V - 1) / V + THREADS - 1) / THREADS);
+}
+
+// true if (table, iterations, pi) is the compiled atan table of FRAC bits
+template <int FRAC>
+bool compiled_atan(const rq::AtanParams& p) {
+  if (p.iterations != FRAC || p.pi != rq::pi_at(FRAC)) return false;
+  for (int i = 0; i < FRAC; ++i)
+    if (p.table[i] != rq::atan_at(FRAC, i)) return false;
+  return true;
+}
+
+// K6 in the form IO: a compiled table (16 entries of frac 16, 24 of frac
+// 24; a float form only its own format's) where the host's is one, else
+// the table by value
+template <int IO>
+int launch_atan2(const void* y, const void* x, void* out, long long n, const int32_t* table,
+                 int iterations, int pi, void* stream) {
+  if (iterations < 0 || iterations > 32) return static_cast<int>(cudaErrorInvalidValue);
+  rq::AtanParams p{};
+  for (int i = 0; i < iterations; ++i) p.table[i] = table[i];
+  p.iterations = iterations;
+  p.pi = pi;
+  if (n == 0) return 0;
+  // the float forms' word format: Q16.16, or Q8.24 for the normalised rung
+  constexpr int F = IO == kF32Norm ? 24 : 16;
+  const unsigned g = pair_blocks(n);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (IO == kWords) {
+    if (compiled_atan<16>(p))
+      atan2_kernel<IO, 16, 16><<<g, THREADS, 0, st>>>(y, x, out, n, NoTable{}, kTwos);
+    else if (compiled_atan<24>(p))
+      atan2_kernel<IO, 24, 24><<<g, THREADS, 0, st>>>(y, x, out, n, NoTable{}, kTwos);
+    else
+      atan2_kernel<IO, F, 0><<<g, THREADS, 0, st>>>(y, x, out, n, p, kTwos);
+  } else {
+    if (compiled_atan<F>(p))
+      atan2_kernel<IO, F, F><<<g, THREADS, 0, st>>>(y, x, out, n, NoTable{}, kTwos);
+    else
+      atan2_kernel<IO, F, 0><<<g, THREADS, 0, st>>>(y, x, out, n, p, kTwos);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int IO>
+int launch_div(const void* num, const void* den, void* out, long long n, int iterations,
+               void* stream) {
+  if (iterations < 0 || iterations > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const unsigned g = pair_blocks(n);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (iterations == DIV_STEPS)
+    div_kernel<IO, DIV_STEPS><<<g, THREADS, 0, st>>>(num, den, out, n, iterations, kTwos);
+  else
+    div_kernel<IO, 0><<<g, THREADS, 0, st>>>(num, den, out, n, iterations, kTwos);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // true if the host's tables in `h` are the compiled-in schedule of N stages
@@ -439,26 +768,39 @@ REPRO_EXPORT int repro_universal_unary(const int32_t* in, int32_t* out, long lon
 }
 
 // K6.  table: `iterations` (<= 32) entries of atan_table(iterations,
-// frac_bits); pi: round(pi * 2**frac_bits).
+// frac_bits); pi: round(pi * 2**frac_bits).  16 entries of frac 16 and 24
+// of frac 24 run with the table compiled in.
 REPRO_EXPORT int repro_universal_atan2(const int32_t* y, const int32_t* x, int32_t* out,
                                        long long n, const int32_t* table, int iterations, int pi,
                                        void* stream) {
-  if (iterations < 0 || iterations > 32) return static_cast<int>(cudaErrorInvalidValue);
-  rq::AtanParams p{};
-  for (int i = 0; i < iterations; ++i) p.table[i] = table[i];
-  p.iterations = iterations;
-  p.pi = pi;
-  if (n == 0) return 0;
-  atan2_kernel<<<grid_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(y, x, out, n, p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_atan2<kWords>(y, x, out, n, table, iterations, pi, stream);
 }
 
-// K7.  iterations <= 32 linear-vectoring steps (17 in the reference).
+// K6 at the Q16.16 float boundary (ops.atan2): f32 y, x -> f32; table and
+// pi as above with frac_bits 16
+REPRO_EXPORT int repro_universal_atan2_f32(const float* y, const float* x, float* out,
+                                           long long n, const int32_t* table, int iterations,
+                                           int pi, void* stream) {
+  return launch_atan2<kF32>(y, x, out, n, table, iterations, pi, stream);
+}
+
+// K6 as the Q8.24 rung (ops.atan2_24): f32 y, x normalised by max(|y|,
+// |x|) -> f32; table and pi with frac_bits 24
+REPRO_EXPORT int repro_universal_atan2_24_f32(const float* y, const float* x, float* out,
+                                              long long n, const int32_t* table, int iterations,
+                                              int pi, void* stream) {
+  return launch_atan2<kF32Norm>(y, x, out, n, table, iterations, pi, stream);
+}
+
+// K7.  iterations <= 32 linear-vectoring steps; 17 (the reference's) run
+// compiled in.
 REPRO_EXPORT int repro_universal_div(const int32_t* num, const int32_t* den, int32_t* out,
                                      long long n, int iterations, void* stream) {
-  if (iterations < 0 || iterations > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  div_kernel<<<grid_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(num, den, out, n,
-                                                                             iterations);
-  return static_cast<int>(cudaGetLastError());
+  return launch_div<kWords>(num, den, out, n, iterations, stream);
+}
+
+// K7 at the Q16.16 float boundary (ops.div): f32 num, den -> f32
+REPRO_EXPORT int repro_universal_div_f32(const float* num, const float* den, float* out,
+                                         long long n, int iterations, void* stream) {
+  return launch_div<kF32>(num, den, out, n, iterations, stream);
 }

@@ -5,7 +5,8 @@ the card.  Imports no JAX, so it runs on the H100 machine as is::
 
 Every test needs the card (marker ``cuda``) and skips without one.
 Tolerances: integer outputs bit-exact (K1, K2's gate and sigmoid, K3,
-K5-K7); K2's f32 product at rtol 1e-6 (one multiply order, each rounded
+K5-K7), and K6's and K7's float entries bit-exact (their bits) against
+the to_fixed -> kernel -> from_fixed chain on the card; K2's f32 product at rtol 1e-6 (one multiply order, each rounded
 once); attention at 2e-3 (f32) and, in bf16, 2**-6 of each element's
 magnitude plus its output row's rms (``kernels.flashattn.bf16_close``:
 the kernel's 64-key (D <= 128) or 32-key (D = 256) tiles round p
@@ -19,11 +20,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.cordic import (  # noqa: E402
+    FLOAT_EDGES,
     UNARY_OPS,
+    atan2_24_f32,
+    atan2_24_f32_plain,
+    atan2_f32,
+    atan2_f32_plain,
     atan2_q16,
     atan2_q16_plain,
     cordic_sincos,
     cordic_sincos_plain,
+    div_f32,
+    div_f32_plain,
     div_q16,
     div_q16_plain,
     rope_sincos_plain,
@@ -274,6 +282,89 @@ def test_cuda_div_matches_plain(cuda):
     z = torch.zeros_like(num)
     for a, b in ((num, den), (num, z), (z, num), (z, z)):
         assert torch.equal(div_q16(a, b), div_q16_plain(a, b))
+
+
+# K6 and K7: V = 4 pairs a thread by 16-byte loads; the engine's counts
+# (atan2 16 at frac 16 and 24 at frac 24, div 17) run compiled, others
+# per element.  Ragged lengths, a view off the 16-byte alignment and the
+# edge grid of chip_smoke.py (every pair of the edge words and -40..40).
+PAIR_SIZES = [1, 3, 4, 5, 1023, 4097]
+
+
+def _edge_grid(device):
+    e = torch.tensor(EDGES + list(range(-40, 41)), dtype=torch.int32, device=device)
+    return tuple(t.reshape(-1).contiguous() for t in torch.meshgrid(e, e, indexing="ij"))
+
+
+def _pair_inputs(device, seed):
+    """(y, x) cases: the edge grid, random words at each ragged length,
+    and a view off the 16-byte alignment."""
+    ey, ex = _edge_grid(device)
+    g = torch.Generator().manual_seed(seed)
+    cases = [(ey, ex)]
+    for n in PAIR_SIZES:
+        w = _words(n, "cpu", seed=seed + n)[: 2 * n + 5]
+        cases.append((torch.roll(w, 3).to(device), w.to(device)))
+    w = torch.randint(-(2**31), 2**31 - 1, (8194,), generator=g, dtype=torch.int32).to(device)
+    cases.append((w[1:4097], w[4098:]))   # 4 and 8 bytes off the 16-byte alignment
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations,frac_bits", [(16, 16), (24, 24), (7, 16), (32, 16),
+                                                  (7, 24), (32, 24), (16, 24)])
+def test_cuda_atan2_schedules_match_plain(cuda, iterations, frac_bits):
+    for y, x in _pair_inputs(cuda, iterations + frac_bits):
+        got = atan2_q16(y, x, iterations, frac_bits)
+        assert torch.equal(got, atan2_q16_plain(y, x, iterations, frac_bits)), y.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations", [17, 9, 32])
+def test_cuda_div_schedules_match_plain(cuda, iterations):
+    for num, den in _pair_inputs(cuda, iterations):
+        assert torch.equal(div_q16(num, den, iterations), div_q16_plain(num, den, iterations))
+
+
+def _float_cases(device, seed):
+    """f32 (y, x) cases: the float edges paired every way (NaN, +-inf,
+    +-0, subnormals, halves of the Q16.16 and Q8.24 grids, +-32768 and
+    their neighbours, the f32 extremes), seeded floats over the Q16.16
+    range and beyond at ragged lengths, and a misaligned view."""
+    import numpy as np
+
+    e = torch.tensor(np.array(FLOAT_EDGES, dtype=np.float32))
+    ey, ex = (t.reshape(-1).contiguous() for t in torch.meshgrid(e, e, indexing="ij"))
+    cases = [(ey.to(device), ex.to(device))]
+    rng = np.random.default_rng(seed)
+    for n in PAIR_SIZES + [70001]:
+        f = np.concatenate([rng.uniform(-300, 300, n), rng.uniform(-40000, 40000, n),
+                            rng.standard_normal(n) * 1e-4]).astype(np.float32)
+        f[::7] = (np.round(f[::7] * 65536) + 0.5) / 65536       # exact halves
+        t = torch.from_numpy(f).to(device)
+        cases.append((torch.roll(t, 5), t))
+    cases.append((cases[-1][0][1:], cases[-1][1][1:]))
+    return cases
+
+
+FLOAT_ENTRIES = [("atan2_f32", atan2_f32, atan2_f32_plain, it) for it in (16, 7, 32)]
+FLOAT_ENTRIES += [("atan2_24_f32", atan2_24_f32, atan2_24_f32_plain, it) for it in (24, 7, 16, 32)]
+FLOAT_ENTRIES += [("div_f32", div_f32, div_f32_plain, it) for it in (17, 9, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fn,plain,iterations", FLOAT_ENTRIES,
+                         ids=[f"{n}-{i}" for n, _, _, i in FLOAT_ENTRIES])
+def test_cuda_float_entries_match_chain(cuda, name, fn, plain, iterations):
+    """The float entries against the composed chain on the card, bit for
+    bit (-0.0 is not 0.0), with one launch each."""
+    for y, x in _float_cases(cuda, iterations):
+        before = fn.launches
+        got = fn(y, x, iterations)
+        assert fn.launches == before + 1
+        want = plain(y, x, iterations)
+        assert got.dtype == torch.float32 and got.shape == y.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (name, y.numel())
 
 
 # K5's tiles: a block takes 2048 words, queues its live elements per path

@@ -229,9 +229,10 @@ def _switch(src, func):
 
 
 def test_cuda_compiled_schedules_match_generators():
-    """The schedules K5 and K3 compile in (cordic.cuh, cordic.cu) against
-    the reference's generators: K5's shifts, atanh entries and gains at 20
-    and 13 stages, K3's atan tables at (16, 16) and (24, 24)."""
+    """The schedules K5, K3 and K6 compile in (cordic.cuh) against the
+    reference's generators: K5's shifts, atanh entries and gains at 20
+    and 13 stages, the atan tables of K3 and K6 at (16, 16) and (24, 24)
+    with their pi, and K7's Horner quotient at 17 steps."""
     hdr = (CSRC / "cordic.cuh").read_text()
     m = re.search(r"hyper_shift_at\(int j\) \{ return j < (\d+) \? j \+ 1 : \(j < (\d+) \? j : "
                   r"j - 1\); \}", hdr)
@@ -247,14 +248,24 @@ def test_cuda_compiled_schedules_match_generators():
     k13 = int(re.search(r"constexpr int32_t K_H_INV13_Q29 = (\d+);", hdr).group(1))
     assert k13 == jcordic.hyper_gain_inverse(jcordic.hyperbolic_schedule(13), 29)
 
-    src = (CSRC / "cordic.cu").read_text()
-    body = src[src.index("atan_at(int frac, int i)"):]
+    body = hdr[hdr.index("atan_at(int frac, int i)"):]
     f16, f24 = body.split("if (frac == 16)", 1)[1].split("switch (i)")[1:3]
     for frac, text in ((16, f16), (24, f24)):
         cases, base = _switch("f(" + text, "f")
         assert base == frac
         assert [cases.get(i, 1 << (frac - i)) for i in range(frac)] == \
             [int(v) for v in jcordic.atan_table(frac, frac)]
+    m = re.search(r"pi_at\(int frac\) \{ return frac == 16 \? (\d+) : (\d+); \}", hdr)
+    assert (int(m.group(1)), int(m.group(2))) == (jcordic.angle_consts(16)[0],
+                                                  jcordic.angle_consts(24)[0])
+    # K3 and K6 step with that table; K6 and K7 compile the reference's
+    # default counts (universal.py: atan2 16 at frac 16, ITER_Q24 at 24,
+    # div 17)
+    assert "rq::atan_at(FRAC, i)" in (CSRC / "cordic.cu").read_text()
+    uni = (CSRC / "universal.cu").read_text()
+    assert "rq::atan_at(FRAC, i)" in uni and "compiled_atan<16>" in uni
+    assert "compiled_atan<24>" in uni and jcordic.ITER_Q24 == 24
+    assert int(re.search(r"constexpr int DIV_STEPS = (\d+);", uni).group(1)) == 17
 
 
 def test_cordic_wrapper_rejects_wrong_dtype():

@@ -19,10 +19,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core.precision import MathEngine as JEngine  # noqa: E402
 from repro.core.precision import PrecisionPolicy as JPolicy  # noqa: E402
+from repro.core import cordic as jcordic  # noqa: E402
+from repro.core import qformat as jq  # noqa: E402
+from repro.kernels.cordic import ops as rops  # noqa: E402
 from repro.kernels.cordic import ref  # noqa: E402
 from repro.kernels.cordic.universal import (  # noqa: E402
     atan2_kernel_call,
@@ -33,9 +37,13 @@ from repro.models.attention import chunked_attention  # noqa: E402
 from repro_torch.core.precision import MathEngine as TEngine  # noqa: E402
 from repro_torch.core.precision import PrecisionPolicy as TPolicy  # noqa: E402
 from repro_torch.kernels.cordic import (  # noqa: E402
+    FLOAT_EDGES,
     UNARY_OPS,
+    atan2_24_f32,
+    atan2_f32,
     atan2_q16,
     atan2_q16_plain,
+    div_f32,
     div_q16,
     div_q16_plain,
     rope_freq_limbs,
@@ -132,6 +140,88 @@ def test_wrappers_route_cpu_and_check_inputs():
         universal_unary(w.to(torch.int64), "exp")
     with pytest.raises(ValueError):
         atan2_q16(w, w[:3])
+
+
+# ---------------------------------------------------------------------------
+# K6's and K7's float entries: plain versions against the reference ops
+# ---------------------------------------------------------------------------
+
+#: the finite float edges of the float entries.  NaN and +-inf are held on
+#: the card only (tests/test_torch_cuda.py): XLA's and torch's CPU casts of
+#: NaN differ.
+FINITE_EDGES = np.array([v for v in FLOAT_EDGES if np.isfinite(v)], np.float32)
+
+
+def _float_pairs(seed, n=600):
+    """Seeded f32 (y, x) over the Q16.16 range and past it (every seventh
+    an exact half of the Q16.16 grid), then the edges paired every way."""
+    rng = np.random.default_rng(seed)
+    f = np.concatenate([rng.uniform(-300, 300, n), rng.uniform(-40000, 40000, n),
+                        rng.standard_normal(n) * 1e-4]).astype(np.float32)
+    f[::7] = (np.round(f[::7].astype(np.float64) * 65536) + 0.5) / 65536
+    ey, ex = (a.ravel() for a in np.meshgrid(FINITE_EDGES, FINITE_EDGES, indexing="ij"))
+    return np.concatenate([np.roll(f, 5), ey]), np.concatenate([f, ex])
+
+
+@jax.jit
+def _ref_atan2_24_chain(y, x, iterations):
+    """cordic_atan2_24's chain with another count, on the Pallas kernel."""
+    m = jnp.maximum(jnp.abs(y), jnp.abs(x))
+    s = jnp.where(m > 0, m, jnp.float32(1.0))
+    out = atan2_kernel_call(jq.to_fixed(y / s, jq.Q8_24), jq.to_fixed(x / s, jq.Q8_24),
+                            iterations=iterations, frac_bits=24, interpret=True)
+    return jq.from_fixed(out, jq.Q8_24)
+
+
+_ref_atan2_24_chain = jax.jit(_ref_atan2_24_chain.__wrapped__, static_argnames=("iterations",))
+
+
+def _reference_float_op(entry, y, x, iterations):
+    y, x = jnp.asarray(y), jnp.asarray(x)
+    if entry == "atan2":
+        return rops.atan2(y, x, iterations=iterations, interpret=True)
+    if entry == "div":
+        return rops.div(y, x, iterations=iterations, interpret=True)
+    if iterations == jcordic.ITER_Q24:
+        return JEngine("q8_24").call("atan2", y, x)     # cordic_atan2_24
+    return _ref_atan2_24_chain(y, x, iterations=iterations)
+
+
+FLOAT_ENTRY_CASES = [("atan2", atan2_f32, 16), ("atan2", atan2_f32, 7),
+                     ("atan2_24", atan2_24_f32, 24), ("atan2_24", atan2_24_f32, 12),
+                     ("div", div_f32, 17), ("div", div_f32, 9)]
+
+
+@pytest.mark.parametrize("entry,fn,iterations", FLOAT_ENTRY_CASES,
+                         ids=[f"{e}-{i}" for e, _, i in FLOAT_ENTRY_CASES])
+def test_float_entries_plain_bit_exact_vs_reference_ops(entry, fn, iterations):
+    """The float entries' plain versions (what a CPU tensor runs) against
+    the reference's jitted float ops (``kernels.cordic.ops.atan2`` /
+    ``div`` on the Pallas kernels in interpret mode, the reference
+    engine's q8_24 atan2), bit for bit."""
+    y, x = _float_pairs(iterations)
+    want = np.asarray(_reference_float_op(entry, y, x, iterations))
+    got = fn(_t(y), _t(x), iterations).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_float_entries_route_cpu_and_check_inputs():
+    y = _t(np.linspace(-3, 3, 13, dtype=np.float32))
+    entries = (atan2_f32, atan2_24_f32, div_f32)
+    before = [fn.launches for fn in entries]
+    for fn in entries:
+        assert fn(y, y.flip(0)).dtype == torch.float32
+    assert [fn.launches for fn in entries] == before
+    for fn in entries:
+        with pytest.raises(TypeError, match="float32"):
+            fn(y.double(), y.double())
+        with pytest.raises(TypeError, match="float32"):
+            fn(y.to(torch.int32), y.to(torch.int32))
+        with pytest.raises(ValueError, match="shapes differ"):
+            fn(y, y[:3])
+    # the engine's ops take any float input and reach the float entries
+    got = tops.atan2(y.double(), np.ones(13))
+    np.testing.assert_array_equal(got.numpy(), atan2_f32(y, torch.ones(13)).numpy())
 
 
 # ---------------------------------------------------------------------------
