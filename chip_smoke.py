@@ -5,7 +5,7 @@ Usage (from the repository root, on a machine with the card)::
 
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --only kernels   # phases 1-2 only
-    python3 chip_smoke.py --only engine    # phases 1-3
+    python3 chip_smoke.py --only engine    # phases 1-3 (3b included)
     python3 chip_smoke.py --only kernels --root OTHER_CHECKOUT
                                            # another tree's kernels, same cases
 
@@ -40,7 +40,13 @@ Phases, each printing JSON lines:
    chain on 2**24 floats and a grid of float edges, NaN and +-inf
    included) — integer outputs bit-exact, float outputs within the stated
    tolerance — with kernel, plain and library times (device time: see
-   :func:`time_ms`) and the card's bound for the same work;
+   :func:`time_ms`) and the card's bound for the same work; and the
+   engine's deferred-correction matmul (C3, ``kernels/csrc/linalg.cu``)
+   bit for bit against its plain version at M = K = N = 4096 (Q16.16 in
+   [-1, 1), tile_k 32), on every M, K, N in (1, 17, 33, 1000) with tile_k
+   in (1, 7, 32, 40, K), both roundings, saturating and wrapping, and on
+   operands near +-32767.0 whose tiles saturate (library: the f32
+   ``torch.matmul`` of the same shape, not the same function);
 3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid sin
    cos on CUDA tensors of 2**24 elements at ``q16_16``, at ``f32`` and
    under ``PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24",
@@ -50,6 +56,13 @@ Phases, each printing JSON lines:
    tests/test_precision_ladder.py) from the exact value, the policy's
    ``q8_24`` atan2 is timed, and K3 and K5-K7 must have run, K6 and K7
    through their float entries only (one pass an op);
+3b. the engine's ``matmul`` at 4096**3 after one ``compile_op``: at
+   ``q16_16`` (Q16.16 words) bit for bit the plain version with one
+   kernel launch a call, at ``f32`` within the reference's float bound
+   (tests/test_linalg.py::test_error_vs_float_bound: ceil(K/32) * 2**-17
+   + 1e-6) of the float64 product, both rungs timed; then the port's
+   three examples (``examples/torch_*.py``) run on the card, the
+   sensor-fusion filter switching to f32 at step 180 and back at 239;
 4. deepseek-7b serving: ``ContinuousBatchingServer`` at the full
    published width and depth (30 layers, random weights from a seed)
    answers 8 greedy requests, half at ``q16_16`` and half at ``f32``;
@@ -57,6 +70,18 @@ Phases, each printing JSON lines:
    must be finite, the ``q16_16`` request that shared its passes only
    with ``f32`` lanes must give, served alone, its mixed-batch tokens,
    and K3 (the FAST RoPE tables) must run once per ``q16_16`` pass;
+   then the segment steps from the served model's parameters: a
+   480-token exact-rung prefill in a batch-1 cache, one ``segment_step``
+   of S = 5 (the next token and 4 drafts) whose argmax at every position
+   equals 5 sequential ``decode_step`` calls from a copy of the cache,
+   ``commit_segment`` with keep_count 3 (accepted rows kept bit for bit
+   and within f32 noise of the sequential decode's: layer 0 elementwise
+   1e-4, every layer 1e-3 of the rows' rms; rejected rows the
+   pre-segment rows bit for bit),
+   the same segment on the FAST rung (K1, K2 and one K3 launch, finite
+   logits), and a chunked prefill (128-token segments, the ragged last
+   chunk's pad rows rolled back by ``commit_segment``) at ``f32`` that
+   picks ``prefill_step``'s next token;
 5. gemma2-2b serving (after deepseek-7b's weights are freed): the full
    published model (26 layers, local window 4096 / global, softcaps
    50 / 30, tied embeddings) on an 8192-token pool answers the same 8
@@ -65,7 +90,11 @@ Phases, each printing JSON lines:
    decoding; every request returns 16 tokens, every logit is finite and
    within the final softcap (|logit| <= 30), K3 and K5 run once per
    ``q16_16`` pass, K4 once per layer of every prefill, and the isolation
-   contract holds.
+   contract holds; then a segment of S = 5 at positions 4500-4504 after
+   the 4500-token exact-rung prefill (the local layers' rolling buffers
+   wrap inside it) whose argmaxes equal sequential decode at ``f32``, a
+   commit with keep_count 2 that restores the wrapped slots bit for bit,
+   and the same segment on the FAST rung (K1, K2, one K3 and one K5).
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -834,6 +863,10 @@ def check_kernels(gen, strict: bool):
     require(has_float or not strict, f"the float entries {FLOAT_ENTRIES} are missing")
     if has_float:
         check_float_entries(kc, xf, yf, keep)
+    require(_has_c3() or not strict, "kernels.linalg (the deferred matmul) is missing")
+    if _has_c3():
+        del x, y, xf, yf, w, wf
+        check_deferred(gen, keep)
     return records
 
 
@@ -879,6 +912,109 @@ def check_float_entries(kc, xf, yf, keep):
         keep(name, rec)
 
 
+# C3, the deferred-correction matmul, is counted as the function needs:
+# one 64-bit multiply-add a product is four 32-bit lane operations (the
+# low and high words of the product, and a 64-bit add as two adds with
+# carry; on the SM's FMA pipe one IMAD.WIDE issued over two cycles of its
+# 64 lanes, so 128 lanes an SM a clock count it at the pipe's rate), and
+# each output's flush a K tile 7 more (the rounding add as a 64-bit add
+# 2, the shifted low word one funnel shift 1, the saturating add 4).
+MAD64, FLUSH = 4, 7
+#: the engine's matmul and the C3 kernel's main shape (Q16.16 in [-1, 1))
+MATMUL_N = 4096
+DEFERRED_DIMS = (1, 17, 33, 1000)
+
+
+def deferred_ops(m: int, n: int, k: int, tile_k: int) -> float:
+    return float(MAD64 * m * n * k + FLUSH * m * n * -(-k // tile_k))
+
+
+def _has_c3() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("repro_torch.kernels.linalg") is not None
+
+
+def _q16_unit(n_rows: int, n_cols: int, gen):
+    """Q16.16 words of uniform values in [-1, 1) on the card."""
+    import torch
+
+    u = torch.rand(n_rows, n_cols, generator=gen, dtype=torch.float64) * 2 - 1
+    return torch.round(u * 65536).to(torch.int32).to(DEVICE)
+
+
+def check_deferred(gen, keep):
+    """C3's deferred-correction matmul against its plain version on the
+    card, bit for bit: the engine's 4096**3 shape (timed, with the f32
+    ``torch.matmul`` of the same shape as the library yardstick: the f32
+    rung's function, not the same bits), the edge grid of M, K, N, tile_k,
+    rounding and saturate on any int32 words, and operands near +-32767.0
+    whose tiles saturate."""
+    import torch
+
+    from repro_torch.core.qformat import Q16_16, from_fixed
+    from repro_torch.kernels.linalg import qmatmul_deferred, qmatmul_deferred_plain
+
+    n = MATMUL_N
+    a, b = _q16_unit(n, n, gen), _q16_unit(n, n, gen)
+    got, want = qmatmul_deferred(a, b), qmatmul_deferred_plain(a, b)
+    torch.cuda.synchronize()
+    rec = {"case": f"M=K=N={n} Q16.16 in [-1, 1) tile_k=32 rounding saturate",
+           "bit_exact": torch.equal(got, want),
+           "max_abs_err": (got.long() - want.long()).abs().max().item()}
+    require(rec["bit_exact"], f"qmatmul_deferred {rec['case']} differs from its plain version")
+    rec["ms"] = time_ms(lambda: qmatmul_deferred(a, b), iters=5, warmup=1)
+    rec["plain_ms"] = time_ms(lambda: qmatmul_deferred_plain(a, b), iters=2, warmup=1)
+    af, bf = from_fixed(a, Q16_16), from_fixed(b, Q16_16)
+    rec["library_ms"] = time_ms(lambda: torch.matmul(af, bf), iters=5, warmup=1)
+    rec["library"] = "torch.matmul f32, TF32 off (the f32 rung; not the same function)"
+    rec["bound_ms"], rec["bound_by"] = bound_ms(4.0 * 3 * n * n, deferred_ops(n, n, n, 32),
+                                                "int32")
+    emit({"phase": "kernels", "kernel": "deferred_matmul", **rec})
+    keep("deferred_matmul", rec)
+    del a, b, af, bf, got, want
+
+    # the edge grid: any int32 words, so whole tiles wrap mod 2**64
+    cases = 0
+    for m in DEFERRED_DIMS:
+        for k in DEFERRED_DIMS:
+            for n_ in DEFERRED_DIMS:
+                a = torch.randint(-(2**31), 2**31 - 1, (m, k), generator=gen,
+                                  dtype=torch.int32).to(DEVICE)
+                b = torch.randint(-(2**31), 2**31 - 1, (k, n_), generator=gen,
+                                  dtype=torch.int32).to(DEVICE)
+                for tile_k in sorted({1, 7, 32, 40, k}):
+                    for rounding in (True, False):
+                        for saturate in (True, False):
+                            kw = dict(tile_k=tile_k, rounding=rounding, saturate=saturate)
+                            require(torch.equal(qmatmul_deferred(a, b, **kw),
+                                                qmatmul_deferred_plain(a, b, **kw)),
+                                    f"qmatmul_deferred M={m} K={k} N={n_} {kw} differs from "
+                                    "its plain version")
+                            cases += 1
+    # Q16.16 operands near +-32767.0 against ones within +-1: products near
+    # the int32 edge, so one-deep tiles saturate across tiles
+    saturated = 0
+    for tile_k in (1, 2, 32):
+        a = torch.randint(32760 * 65536, 2**31 - 1, (1000, 96), generator=gen, dtype=torch.int32)
+        a = a * (torch.randint(0, 2, a.shape, generator=gen, dtype=torch.int32) * 2 - 1)
+        b = torch.randint(-65536, 65537, (96, 1000), generator=gen, dtype=torch.int32)
+        a, b = a.to(DEVICE), b.to(DEVICE)
+        for saturate in (True, False):
+            got = qmatmul_deferred(a, b, tile_k=tile_k, saturate=saturate)
+            require(torch.equal(got, qmatmul_deferred_plain(a, b, tile_k=tile_k,
+                                                            saturate=saturate)),
+                    f"qmatmul_deferred saturating operands tile_k={tile_k} saturate={saturate} "
+                    "differs from its plain version")
+            if saturate and tile_k == 1:
+                saturated = int((got.abs() == 2**31 - 1).sum())
+    require(saturated > 0, "the saturating case saturated no output")
+    emit({"phase": "kernels", "kernel": "deferred_matmul", "case": "edge grid M, K, N in "
+          f"{DEFERRED_DIMS}, tile_k in (1, 7, 32, 40, K), both roundings, saturate on and off, "
+          "int32 words; operands near +-32767.0 at tile_k 1, 2, 32", "cases": cases + 6,
+          "saturated_outputs": saturated, "bit_exact": True})
+
+
 # ---------------------------------------------------------------------------
 # launch counters
 # ---------------------------------------------------------------------------
@@ -888,7 +1024,7 @@ FLOAT_ENTRIES = ("atan2_f32", "atan2_24_f32", "div_f32")
 #: rows of the kernels line: K1-K7 (K6 and K7 counting the launches of all
 #: their entries), then the float entries, each with its own launches
 KERNELS = ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention", "universal_unary",
-           "atan2_q16", "div_q16") + FLOAT_ENTRIES
+           "atan2_q16", "div_q16") + FLOAT_ENTRIES + ("deferred_matmul",)
 
 
 def _wrappers():
@@ -904,7 +1040,12 @@ def _wrappers():
     def entries(*names):
         return tuple(getattr(kc, n) for n in names if hasattr(kc, n))
 
-    return {"qmatmul": (qmatmul,), "fused_swiglu": (fused_swiglu,),
+    c3 = ()
+    if _has_c3():
+        from repro_torch.kernels.linalg import qmatmul_deferred
+
+        c3 = (qmatmul_deferred,)
+    return {"qmatmul": (qmatmul,), "fused_swiglu": (fused_swiglu,), "deferred_matmul": c3,
             "cordic_sincos": (kc.cordic_sincos, kc.rope_sincos_q16),
             "flash_attention": (flash_attention,), "universal_unary": (kc.universal_unary,),
             "atan2_q16": entries("atan2_q16", "atan2_f32", "atan2_24_f32"),
@@ -1089,6 +1230,77 @@ def engine_phase(seed: int, strict: bool):
     return {k: launches[k] for k in paths if k in launches}, by_entry
 
 
+def engine_matmul_phase(seed: int):
+    """The engine's ``matmul`` (C3) at 4096**3 on both rungs after one
+    ``compile_op``, then the port's three examples on the card; returns
+    the deferred kernel's launches of the two timed-before-checked calls."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    from repro_torch.core import linalg
+    from repro_torch.core.precision import MathEngine
+    from repro_torch.core.qformat import Q16_16, from_fixed
+    from repro_torch.kernels.linalg import qmatmul_deferred_plain
+
+    gen = torch.Generator().manual_seed(seed + 17)
+    n = MATMUL_N
+    a, b = _q16_unit(n, n, gen), _q16_unit(n, n, gen)
+    af, bf = from_fixed(a, Q16_16), from_fixed(b, Q16_16)
+    eng = MathEngine("q16_16")
+    t0 = time.perf_counter()
+    eng.compile_op("matmul", {"q16_16": linalg.qmatmul_deferred, "f32": linalg.matmul_float},
+                   a[:64, :64].contiguous(), b[:64, :64].contiguous())
+    compile_s = time.perf_counter() - t0
+    _reset_launch_counts()
+    fixed = eng.call("matmul", a, b)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    with eng.at("f32"):
+        exact = eng.call("matmul", af, bf)
+    want = (af.double() @ bf.double())
+    tiles = -(-n // 32)
+    limit = tiles * 2.0 ** -17 + 1e-6
+    rec = {"case": f"M=K=N={n} Q16.16 operands in [-1, 1) (f32: the same values)",
+           "compile_op_s": compile_s, "q16_16_launches": launches["deferred_matmul"],
+           "q16_16_bit_exact": torch.equal(fixed, qmatmul_deferred_plain(a, b)),
+           "q16_16_max_err_vs_f64": (from_fixed(fixed, Q16_16).double() - want).abs().max().item(),
+           "f32_max_err_vs_f64": (exact.double() - want).abs().max().item(),
+           "bound": f"ceil(K/32) * 2**-17 + 1e-6 = {limit}",
+           "q16_16_ms": time_ms(lambda: eng.call("matmul", a, b), iters=5, warmup=1)}
+    with eng.at("f32"):
+        rec["f32_ms"] = time_ms(lambda: eng.call("matmul", af, bf), iters=5, warmup=1)
+    del fixed, exact, want, a, b, af, bf
+    require(rec["q16_16_bit_exact"], "engine matmul at q16_16 differs from the plain version")
+    require(rec["q16_16_launches"] == 1, f"engine matmul at q16_16 launched the deferred kernel "
+            f"{rec['q16_16_launches']} times, want 1")
+    for rung in ("q16_16", "f32"):
+        require(rec[f"{rung}_max_err_vs_f64"] <= limit,
+                f"engine matmul at {rung} outside the reference's float bound: {rec}")
+
+    # the port's examples, as a user runs them (on the card by default)
+    examples = {}
+    for name in ("torch_quickstart", "torch_sensor_fusion", "torch_precision_arbiter_demo"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = mod.main()
+        examples[name] = out.getvalue().strip().splitlines()[-3:]
+        if name == "torch_sensor_fusion":
+            sw = [(st, str(lv), reason.split()[0]) for st, lv, reason, _ in res]
+            examples["sensor_fusion_switches"] = sw
+            require(sw == [(180, "f32", "grad-spike"), (239, "q8_24", "stable")],
+                    f"the sensor-fusion example switched {sw}, the reference at 180 and 239")
+    rec["examples"] = examples
+    emit({"phase": "engine_matmul", **rec})
+    return {"deferred_matmul": launches["deferred_matmul"]}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving at full size
 # ---------------------------------------------------------------------------
@@ -1248,21 +1460,179 @@ def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_l
                rec["launches_per_decode_tick"][lv]["cordic_sincos"])
         require(got == (want, want), f"{cfg.name}: a {lv} prefill / decode pass launched K3 "
                 f"{got} times, want {want}")
-    return rec
+    return rec, srv, prompts
+
+
+#: one verify pass: the next token and k = 4 drafts
+SEG_S = 4 + 1
+#: the chunked prefill's fixed segment length
+CHUNK = 128
+
+
+def _clone_tree(tree):
+    return {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in tree.items()}
+
+
+def segment_phase(srv, cfg, prompt, max_len: int, keep_count: int, chunked: bool, seed: int):
+    """The segment steps on the served model's parameters (batch 1):
+    exact-rung prefill of ``prompt``, one ``segment_step`` of SEG_S tokens
+    held against SEG_S sequential ``decode_step`` calls from a copy of the
+    cache (argmax at every position), ``commit_segment`` with
+    ``keep_count`` (accepted rows kept bit for bit, positions equal to the
+    sequential decode's and rows within f32 noise of them — see below;
+    rejected rows the pre-segment rows bit for bit, wrapped
+    rolling-buffer slots included), the same segment on the FAST
+    rung, and with ``chunked`` a chunked prefill at ``f32``.  Returns
+    {path: launches}: the FAST segment's, counted from 0 just before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models as tm
+
+    dev, sync, params = torch.device(DEVICE), torch.cuda.synchronize, srv.params
+    n = len(prompt)
+    caches = tm.init_caches(cfg, 1, max_len, device=dev)
+    t0 = time.perf_counter()
+    first_logits, _ = tm.prefill_step(params, torch.tensor([prompt], dtype=torch.int32,
+                                                           device=dev), caches, cfg, mode="exact")
+    first = int(first_logits.argmax())
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    drafts = np.random.default_rng(seed).integers(0, cfg.vocab, SEG_S - 1).tolist()
+    seg = torch.tensor([[first] + drafts], dtype=torch.int32, device=dev)
+    pos = torch.arange(n, n + SEG_S, dtype=torch.int32, device=dev)[None]
+    before, seq = _clone_tree(caches), _clone_tree(caches)
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    seg_logits, _, aux = tm.segment_step(params, seg, pos, caches, cfg, mode="exact")
+    sync()
+    seg_ms = (time.perf_counter() - t0) * 1e3
+    exact_launches = _launch_counts()
+    t0 = time.perf_counter()
+    seq_logits = torch.stack([tm.decode_step(params, seg[:, i:i + 1], pos[:, i], seq, cfg,
+                                             mode="exact")[0] for i in range(SEG_S)], dim=1)
+    sync()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    argmax_seg = seg_logits.argmax(-1)[0].tolist()
+    argmax_seq = seq_logits.argmax(-1)[0].tolist()
+    gap = (seg_logits - seq_logits).abs().max().item()
+
+    slots = {key: pos[0].long() % caches[key]["pos"].shape[-1] for key in caches}
+    written = {key: {leaf: caches[key][leaf][:, 0, slots[key][:keep_count]].clone()
+                     for leaf in ("k", "v", "pos")} for key in caches}
+    tm.commit_segment(caches, aux, cfg, keep_pos=pos[:, keep_count - 1],
+                      keep_count=torch.tensor([keep_count], device=dev),
+                      active=torch.ones(1, dtype=torch.bool, device=dev))
+    sync()
+    # accepted rows: kept by the commit bit for bit, and the sequential
+    # decode's within f32 noise.  Layer 0's rows come from one GEMM
+    # reassociated (5 rows against 1), elementwise within 1e-4; deeper
+    # layers compound it through the random weights, held at 1e-3 of
+    # the rows' rms
+    accepted_ok, rejected_ok, wrapped, layer0, depth = True, True, 0, 0.0, 0.0
+    for key in caches:
+        acc, rej = slots[key][:keep_count], slots[key][keep_count:]
+        wrapped += int((before[key]["pos"][:, 0, rej] >= 0).sum())
+        for leaf in ("k", "v", "pos"):
+            got, want = caches[key][leaf][:, 0, acc], seq[key][leaf][:, 0, acc]
+            accepted_ok &= torch.equal(got, written[key][leaf])
+            if leaf == "pos":
+                accepted_ok &= torch.equal(got, want)
+            else:
+                err = (got - want).abs()
+                layer0 = max(layer0, (err[0] / (1 + want[0].abs())).max().item())
+                rms = want.pow(2).flatten(1).mean(1).sqrt().clamp_min(1e-30)
+                depth = max(depth, (err.flatten(1).amax(1) / rms).max().item())
+            rejected_ok &= torch.equal(caches[key][leaf][:, 0, rej], before[key][leaf][:, 0, rej])
+    accepted_ok &= layer0 <= 1e-4 and depth <= 1e-3
+
+    # the same segment on the FAST rung, from the pre-segment cache
+    for key in caches:
+        for leaf in caches[key]:
+            caches[key][leaf].copy_(before[key][leaf])
+    del seq, before
+    _reset_launch_counts()
+    fast_logits, _, _ = tm.segment_step(params, seg, pos, caches, cfg, mode="fast")
+    sync()
+    fast_launches = _launch_counts()
+    fast_finite = bool(torch.isfinite(fast_logits).all())
+    del caches, aux, fast_logits
+
+    rec = {"phase": "segment", "model": cfg.name, "layers": cfg.n_layers, "prompt_len": n,
+           "positions": [n, n + SEG_S - 1], "drafts": len(drafts), "keep_count": keep_count,
+           "argmax_segment": argmax_seg, "argmax_sequential": argmax_seq,
+           "max_logit_gap": gap, "accepted_rows_layer0_max_err_over_1_plus_abs": layer0,
+           "accepted_rows_max_err_over_rms": depth,
+           "accepted_rows_ok": accepted_ok, "rejected_rows_bit_exact": rejected_ok,
+           "rejected_rows_over_older_live_rows": wrapped, "prefill_ms": prefill_ms,
+           "segment_ms": seg_ms, "sequential_decode_ms": seq_ms,
+           "exact_segment_launches": {k: v for k, v in exact_launches.items() if v},
+           "fast_segment_launches": {k: v for k, v in fast_launches.items() if v},
+           "fast_logits_finite": fast_finite}
+
+    if chunked:
+        caches = tm.init_caches(cfg, 1, max_len, device=dev)
+        t0 = time.perf_counter()
+        for c0 in range(0, n, CHUNK):
+            r = min(CHUNK, n - c0)
+            toks = torch.zeros((1, CHUNK), dtype=torch.int32, device=dev)
+            toks[0, :r] = torch.tensor(prompt[c0:c0 + r], dtype=torch.int32, device=dev)
+            cpos = torch.arange(c0, c0 + CHUNK, dtype=torch.int32, device=dev)[None]
+            logits, _, aux = tm.segment_step(params, toks, cpos, caches, cfg, mode="exact")
+            tm.commit_segment(caches, aux, cfg, keep_pos=cpos[:, r - 1],
+                              keep_count=torch.tensor([r], device=dev),
+                              active=torch.ones(1, dtype=torch.bool, device=dev))
+            last = logits[0, r - 1]
+        sync()
+        rec["chunked_prefill"] = {
+            "chunk": CHUNK, "chunks": -(-n // CHUNK), "last_chunk_rows": n - CHUNK * (n // CHUNK),
+            "next_token": int(last.argmax()), "prefill_next_token": first,
+            "max_logit_gap": (last - first_logits[0]).abs().max().item(),
+            "pad_rows_rolled_back": bool((caches["pos0"]["pos"][:, 0, n:] == -1).all()),
+            "ms": (time.perf_counter() - t0) * 1e3}
+        del caches, aux
+    emit(rec)
+    require(argmax_seg == argmax_seq, f"{cfg.name}: segment argmaxes {argmax_seg} differ from "
+            f"sequential decode's {argmax_seq}")
+    require(accepted_ok, f"{cfg.name}: commit_segment's accepted rows differ from the segment's "
+            f"or from the sequential decode's (layer 0 {layer0}, over rms {depth})")
+    require(rejected_ok, f"{cfg.name}: commit_segment did not restore the rejected rows")
+    require(fast_finite, f"{cfg.name}: FAST segment logits not finite")
+    if any(sp.window for sp in cfg.period):
+        require(wrapped > 0, f"{cfg.name}: the segment wrapped no rolling-buffer slot")
+    for k in ("qmatmul", "fused_swiglu"):
+        require(fast_launches[k] > 0, f"{cfg.name}: the FAST segment launched no {k}")
+    require(fast_launches["cordic_sincos"] == 1,
+            f"{cfg.name}: the FAST segment launched K3 {fast_launches['cordic_sincos']} times")
+    if cfg.final_softcap:
+        require(fast_launches["universal_unary"] == 1,
+                f"{cfg.name}: the FAST segment launched K5 {fast_launches['universal_unary']} times")
+    if chunked:
+        c = rec["chunked_prefill"]
+        require(c["next_token"] == first and c["pad_rows_rolled_back"],
+                f"{cfg.name}: chunked prefill {c} disagrees with prefill_step")
+    return {"segment_fast": fast_launches}
 
 
 def deepseek_phase(seed: int):
-    """deepseek-7b: the slice-1 serving path (K1-K4)."""
-    rec = _serve_model("deepseek_7b", seed, 1024, PROMPT_LENS, LEVELS, (480,))
+    """deepseek-7b: the slice-1 serving path (K1-K4), then the segment
+    steps on its parameters."""
+    rec, srv, prompts = _serve_model("deepseek_7b", seed, 1024, PROMPT_LENS, LEVELS, (480,))
     for name in ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention"):
         require(rec["launches"][name] > 0, f"kernel {name} was not launched while serving")
-    return rec["launches"]
+    paths = {"serve": rec["launches"]}
+    if _has_c3():
+        prompt = next(p for p in prompts if len(p) == 480)
+        paths.update(segment_phase(srv, srv.cfg, prompt, 1024, 3, True, seed))
+    return paths
 
 
 def gemma2_phase(seed: int):
-    """gemma2-2b: sliding window, softcaps, tied head (K1-K5)."""
-    rec = _serve_model("gemma2_2b", seed, 8192, PROMPT_LENS + (LONG_PROMPT, LONG_PROMPT),
-                       LEVELS + ("q16_16", "f32"), (480, LONG_PROMPT))
+    """gemma2-2b: sliding window, softcaps, tied head (K1-K5), then a
+    segment across the local layers' window wrap."""
+    rec, srv, prompts = _serve_model("gemma2_2b", seed, 8192, PROMPT_LENS + (LONG_PROMPT, LONG_PROMPT),
+                                     LEVELS + ("q16_16", "f32"), (480, LONG_PROMPT))
     launches = rec["launches"]
     for name in ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention",
                  "universal_unary"):
@@ -1281,7 +1651,12 @@ def gemma2_phase(seed: int):
     require(rec["launches_per_prefill"]["q16_16"]["universal_unary"] == 1
             and rec["launches_per_decode_tick"]["q16_16"]["universal_unary"] == 1,
             "gemma2-2b: K5 is not launched once per q16_16 pass")
-    return launches
+    paths = {"serve": launches}
+    if _has_c3():
+        prompt = next(p for p in prompts if len(p) == LONG_PROMPT)
+        seg = segment_phase(srv, srv.cfg, prompt, 8192, 2, False, seed)
+        paths.update(seg)
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -1311,6 +1686,10 @@ REPLACES = {
                      "src/repro/kernels/cordic/universal.py:55"),
     "div_f32": ("src/repro_torch/kernels/csrc/universal.cu",
                 "src/repro/kernels/cordic/universal.py:59"),
+    # the engine's C3, which the reference computes in plain JAX
+    "deferred_matmul": ("src/repro_torch/kernels/csrc/linalg.cu",
+                        "src/repro/core/linalg.py::qmatmul_deferred (plain JAX, not a Pallas "
+                        "kernel)"),
 }
 
 
@@ -1380,15 +1759,20 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path["engine"], by_entry = engine_phase(args.seed, strict=root == ROOT)
+        if _has_c3():
+            gc.collect()
+            torch.cuda.empty_cache()
+            by_path["engine_matmul"] = engine_matmul_phase(args.seed)
+        emit({"phase": "engine done", "elapsed_s": time.perf_counter() - t_start})
     if args.only is None:
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_path["deepseek_7b"] = deepseek_phase(args.seed)
-        emit({"phase": "deepseek_7b done", "elapsed_s": time.perf_counter() - t_start})
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_path["gemma2_2b"] = gemma2_phase(args.seed)
-        emit({"phase": "gemma2_2b done", "elapsed_s": time.perf_counter() - t_start})
+        for model, phase in (("deepseek_7b", deepseek_phase), ("gemma2_2b", gemma2_phase)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            paths = phase(args.seed)
+            by_path[model] = paths["serve"]
+            if "segment_fast" in paths:
+                by_path[f"{model}_segment_fast"] = paths["segment_fast"]
+            emit({"phase": f"{model} done", "elapsed_s": time.perf_counter() - t_start})
 
     kernels = []
     for name in KERNELS:

@@ -54,7 +54,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "kernels" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: one shared library per source; the header is shared by all of them
-KERNEL_SOURCES = ("qmatmul", "fused_mlp", "cordic", "flashattn", "universal")
+KERNEL_SOURCES = ("qmatmul", "fused_mlp", "cordic", "flashattn", "universal", "linalg")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,20 +1,142 @@
-"""Per-slot (per-request) precision arbiter of the serving engine.
+"""Dynamic precision arbiters: the engine's ``PrecisionArbiter`` and the
+serving engine's per-slot ``SlotArbiter``.
 
-Reference: ``src/repro/core/arbiter.py`` (``SlotArbiterConfig`` and
-``SlotArbiter``, numpy only; copied so the port never imports the JAX
-package).  The training-side ``PrecisionArbiter`` waits for the
-training slice (ROADMAP.md queue 1 item 12).
+Reference: ``src/repro/core/arbiter.py`` (``ArbiterConfig``,
+``PrecisionArbiter``, ``SlotArbiterConfig`` and ``SlotArbiter``, host
+Python and numpy only; copied so the port never imports the JAX
+package).
+
+``PrecisionArbiter`` watches loss and gradient-norm telemetry and
+recommends transitions along a ladder (cheapest -> most precise), which
+the engine executes through its two-phase barrier (hysteresis stepping):
+  step UP one rung on a grad-norm spike (> ``spike_factor`` x running
+      median) or a loss regression (> ``regress_tol`` over the window);
+  jump to the TOP rung on non-finite loss/grad, bypassing the cooldown;
+  step DOWN one rung after ``stable_steps`` consecutive healthy steps,
+      with a cooldown between switches against flapping.
+Spike/regression escalations and all demotions honour the cooldown, and
+any unhealthy step resets the ``stable_steps`` demotion counter.
 """
 
 from __future__ import annotations
 
+import math
 from collections import deque
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Deque, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SlotArbiterConfig", "SlotArbiter"]
+from repro_torch.core.precision import Mode
+
+__all__ = ["ArbiterConfig", "PrecisionArbiter", "SlotArbiterConfig", "SlotArbiter"]
+
+
+@dataclass(frozen=True)
+class ArbiterConfig:
+    spike_factor: float = 8.0        # grad-norm spike threshold vs running median
+    regress_tol: float = 0.25        # fractional loss regression that trips escalation
+    window: int = 32                 # telemetry window
+    stable_steps: int = 64           # healthy steps before stepping back down
+    cooldown_steps: int = 16         # minimum steps between switches
+    #: ordered cheapest -> most precise; entries are whatever the engine
+    #: accepts (Mode compat aliases or ladder level names).
+    ladder: Tuple[Any, ...] = (Mode.FAST, Mode.PRECISE)
+    start_mode: Any = Mode.FAST      # must be a ladder entry
+
+
+@dataclass
+class PrecisionArbiter:
+    config: ArbiterConfig = field(default_factory=ArbiterConfig)
+
+    def __post_init__(self):
+        cfg = self.config
+        if not cfg.ladder:
+            raise ValueError("arbiter ladder must have at least one entry")
+        self._ladder = tuple(cfg.ladder)
+        try:
+            self._idx = self._ladder.index(cfg.start_mode)
+        except ValueError:
+            raise ValueError(
+                f"start_mode {cfg.start_mode!r} is not in the ladder {self._ladder!r}"
+            ) from None
+        self._losses: Deque[float] = deque(maxlen=cfg.window)
+        self._gnorms: Deque[float] = deque(maxlen=cfg.window)
+        self._stable = 0
+        self._last_switch_step = -(10**9)
+        self.decisions: list = []
+
+    @property
+    def mode(self) -> Any:
+        """The current ladder entry (a Mode for the default ladder)."""
+        return self._ladder[self._idx]
+
+    @property
+    def ladder(self) -> Tuple[Any, ...]:
+        return self._ladder
+
+    @property
+    def rung(self) -> int:
+        """Index of the current entry (0 = cheapest)."""
+        return self._idx
+
+    @staticmethod
+    def _median(values) -> float:
+        s = sorted(values)
+        n = len(s)
+        if n == 0:
+            return 0.0
+        mid = n // 2
+        return s[mid] if n % 2 else 0.5 * (s[mid - 1] + s[mid])
+
+    def _unhealthy(self, loss: float, grad_norm: float) -> Optional[str]:
+        if not math.isfinite(loss) or not math.isfinite(grad_norm):
+            return "non-finite"
+        if len(self._gnorms) >= 8:
+            med = self._median(self._gnorms)
+            if med > 0 and grad_norm > self.config.spike_factor * med:
+                return f"grad-spike {grad_norm:.3g} > {self.config.spike_factor}x med {med:.3g}"
+        if len(self._losses) >= 8:
+            recent = self._median(list(self._losses)[-4:])
+            past = self._median(list(self._losses)[:4])
+            if past > 0 and recent > past * (1.0 + self.config.regress_tol):
+                return f"loss-regression {past:.4g} -> {recent:.4g}"
+        return None
+
+    def _switch(self, step: int, idx: int, reason: str):
+        self._idx = idx
+        self._last_switch_step = step
+        self._stable = 0
+        entry = self._ladder[idx]
+        self.decisions.append((step, entry, reason))
+        return entry
+
+    def observe(self, step: int, loss: float, grad_norm: float) -> Optional[Any]:
+        """Feed one step's telemetry; returns a ladder entry if a switch
+        is recommended, else None.  Non-finite steps are NOT added to the
+        telemetry window (they would poison the medians)."""
+        reason = self._unhealthy(loss, grad_norm)
+        cooled = step - self._last_switch_step >= self.config.cooldown_steps
+        forced = reason == "non-finite"
+
+        if reason is None:
+            self._losses.append(loss)
+            self._gnorms.append(grad_norm)
+            self._stable += 1
+        else:
+            self._stable = 0
+
+        top = len(self._ladder) - 1
+        if reason is not None and self._idx < top and (cooled or forced):
+            # non-finite jumps straight to the most precise rung; spikes
+            # and regressions escalate one rung at a time
+            return self._switch(step, top if forced else self._idx + 1, reason)
+
+        if (self._idx > 0 and reason is None and self._stable >= self.config.stable_steps
+                and cooled):
+            return self._switch(step, self._idx - 1, "stable")
+
+        return None
 
 
 @dataclass(frozen=True)

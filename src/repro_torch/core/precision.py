@@ -5,7 +5,7 @@ Reference: ``src/repro/core/precision.py``.  Ported: the level registry
 :func:`resolve_level`, the ``Mode`` compat aliases,
 :class:`PrecisionPolicy` (per-op level overrides) and
 :class:`MathEngine` with ``register``, ``call``, ``set_level``,
-``set_policy``, ``at`` (a level or a policy), ``weight_cache``,
+``set_policy``, ``at`` (a level or a policy), ``compile_op``, ``weight_cache``,
 ``invalidate_weights`` and ``switched``.
 
 ``switched`` has no ``lax.switch`` to build here: PyTorch runs eagerly,
@@ -16,13 +16,21 @@ through.  ``call`` resolves the op's level through the active policy
 and the ladder fallback, as the reference's context tables do; the
 immutable ``PrecisionContext`` objects themselves are not carried over.
 
-``_default_ops`` registers the reference's op set except ``matmul``
-(``core/linalg.py`` is not ported yet; ROADMAP.md queue 1 item 5):
+``_default_ops`` registers the reference's whole op set, ``OP_SET``:
 ``mul``/``add``/``sub`` (Q-format core), ``sin``/``cos`` (kernel K3),
-and the universal family at the float boundary — ``atan2`` (K6, with a
-``q8_24`` rung), ``div`` (K7), ``sqrt``/``exp``/``log``/``tanh``/
-``sigmoid`` (K5).  On CUDA tensors the fixed rungs launch those
-kernels; the ``f32`` rung is the torch function.
+``matmul`` (C3: ``core.linalg.qmatmul_deferred`` on Q16.16 words at
+``q16_16`` — the hand-written deferred-correction kernel on a CUDA
+tensor — and ``matmul_float`` at ``f32``), and the universal family at
+the float boundary — ``atan2`` (K6, with a ``q8_24`` rung), ``div``
+(K7), ``sqrt``/``exp``/``log``/``tanh``/``sigmoid`` (K5).  On CUDA
+tensors the fixed rungs launch those kernels; the ``f32`` rung is the
+torch function.
+
+``compile_op`` keeps the reference's name and role (every path ready
+before the first switch), but eager PyTorch has nothing to lower ahead
+of time: it runs each given implementation once on the example
+arguments, which builds (and loads) every kernel the op reaches, and
+then registers the implementations.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from repro_torch.core.qformat import Q8_8, Q8_24, Q16_16, QFormat
 
 __all__ = [
     "Mode",
+    "OP_SET",
     "PrecisionLevel",
     "PrecisionPolicy",
     "MathEngine",
@@ -79,6 +88,13 @@ class PrecisionLevel:
     def mode(self) -> Mode:
         return Mode.FAST if self.is_fixed else Mode.PRECISE
 
+
+#: The paper's operation set F (Eq. 19), extended with the universal-
+#: CORDIC family and the linear-vectoring division (the reference's).
+OP_SET = (
+    "mul", "add", "sub", "sin", "cos", "matmul",
+    "atan2", "sqrt", "exp", "log", "tanh", "sigmoid", "div",
+)
 
 _LEVELS: Dict[str, PrecisionLevel] = {}
 MODE_ALIASES: Dict[Mode, str] = {Mode.FAST: "q16_16", Mode.PRECISE: "f32"}
@@ -188,7 +204,7 @@ class MathEngine:
     # -- registration -----------------------------------------------------
 
     def _default_ops(self):
-        from repro_torch.core import cordic, qformat
+        from repro_torch.core import cordic, linalg, qformat
         from repro_torch.kernels.cordic import ops
 
         self.register(
@@ -212,6 +228,7 @@ class MathEngine:
             q8_24=lambda t: cordic.cordic_sincos24(t)[1],
             f32=torch.cos,
         )
+        self.register("matmul", q16_16=linalg.qmatmul_deferred, f32=linalg.matmul_float)
         self.register("atan2", q16_16=ops.atan2, q8_24=ops.atan2_24, f32=torch.atan2)
         for op, f32 in (("sqrt", torch.sqrt), ("exp", torch.exp), ("log", torch.log),
                         ("tanh", torch.tanh), ("sigmoid", torch.sigmoid)):
@@ -232,6 +249,26 @@ class MathEngine:
             table[resolve_level(lv).name] = fn
         if not table:
             raise ValueError(f"register({name!r}): no implementations given")
+        self._impls[name] = table
+
+    def compile_op(self, name: str, impls: Dict[LevelSpec, Callable], *example_args) -> None:
+        """Make every path of ``name`` ready NOW, so no call after
+        ``set_level`` builds a kernel.  The reference lowers and compiles
+        each implementation ahead of time (and takes lowering keywords);
+        eager PyTorch has nothing to lower, so each implementation runs
+        once on ``example_args``, which builds and loads the CUDA kernels
+        it reaches, and the table is then registered as ``register``
+        does.  ``impls`` keys may be Modes or level names.  The example
+        outputs are discarded; on a CUDA tensor the warm-up is
+        synchronised."""
+        table = {resolve_level(lv).name: fn for lv, fn in impls.items()}
+        if not table:
+            raise ValueError(f"compile_op({name!r}): no implementations given")
+        for fn in table.values():
+            fn(*example_args)
+        for a in example_args:
+            if isinstance(a, torch.Tensor) and a.device.type == "cuda":
+                torch.cuda.synchronize(a.device)
         self._impls[name] = table
 
     def _impl_for(self, name: str, level_name: str) -> Callable:

@@ -6,6 +6,12 @@ JAX has no 64-bit integers; PyTorch has int64, so the product is
 formed directly in int64 and the low 32 bits are kept — bit-exact with
 the limb arithmetic (rounding add, arithmetic shift, wrap to int32,
 optional saturation on the high word's sign).
+
+The limb helpers themselves (``widening_mul_i32``, ``add_64``,
+``add_64_pair``, ``shift_right_64``) are kept for callers that work on
+(hi, lo) pairs: each word is an int64 tensor holding the uint32 value
+(0 .. 2**32 - 1), bit-equal to the reference's uint32 words.
+``static_footprint_bytes`` is the paper's 88-byte decomposition.
 """
 
 from __future__ import annotations
@@ -31,6 +37,11 @@ __all__ = [
     "q_mul",
     "q_mul_sat",
     "q_neg",
+    "widening_mul_i32",
+    "add_64",
+    "add_64_pair",
+    "shift_right_64",
+    "static_footprint_bytes",
 ]
 
 
@@ -169,3 +180,67 @@ def q_mul(a, b, *, frac_bits: int = 16, rounding: bool = True, saturate: bool = 
 
 def q_mul_sat(a, b, *, frac_bits: int = 16, rounding: bool = True):
     return q_mul(a, b, frac_bits=frac_bits, rounding=rounding, saturate=True)
+
+
+# ---------------------------------------------------------------------------
+# Widening 32x32 -> 64 multiply as (hi, lo) uint32 words (paper §8.1 / §8.5)
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _u32(w) -> torch.Tensor:
+    """A uint32 word (given as any integer tensor) as int64 in [0, 2**32)."""
+    return torch.as_tensor(w).to(torch.int64) & _U32
+
+
+def widening_mul_i32(a, b):
+    """Exact signed 32x32 -> 64-bit product as a (hi, lo) pair of uint32
+    words: ``value = hi << 32 | lo`` read as int64.  The product is formed
+    in int64 (|a * b| <= 2**62, no overflow) and split."""
+    a = torch.as_tensor(a, dtype=torch.int32)
+    b = torch.as_tensor(b, dtype=torch.int32, device=a.device)
+    p = a.to(torch.int64) * b.to(torch.int64)
+    return (p >> 32) & _U32, p & _U32
+
+
+def add_64(hi, lo, addend_u32):
+    """(hi, lo) + a small unsigned addend, with the carry into hi."""
+    hi, lo = _u32(hi), _u32(lo)
+    lo2 = (lo + _u32(addend_u32)) & _U32
+    return (hi + (lo2 < lo).to(torch.int64)) & _U32, lo2
+
+
+def add_64_pair(hi1, lo1, hi2, lo2):
+    """Two's-complement 64-bit add of two (hi, lo) pairs (wraps mod 2**64)."""
+    lo1 = _u32(lo1)
+    lo = (lo1 + _u32(lo2)) & _U32
+    return (_u32(hi1) + _u32(hi2) + (lo < lo1).to(torch.int64)) & _U32, lo
+
+
+def shift_right_64(hi, lo, n: int):
+    """Arithmetic right shift of a two's-complement (hi, lo) pair by 0 < n < 32."""
+    if not 0 < n < 32:
+        raise ValueError("shift must be in (0, 32)")
+    hi, lo = _u32(hi), _u32(lo)
+    lo2 = ((lo >> n) | (hi << (32 - n))) & _U32
+    hi_signed = hi - ((hi >> 31) << 32)
+    return (hi_signed >> n) & _U32, lo2
+
+
+# ---------------------------------------------------------------------------
+# Static footprint accounting (paper §4.3.2: 88 bytes total)
+# ---------------------------------------------------------------------------
+
+
+def static_footprint_bytes(num_ops: int = 6, cordic_iters: int = 16) -> dict:
+    """The paper's static-memory decomposition: a dispatch table of
+    |F| 4-byte pointers and a CORDIC atan table of ``iters`` 4-byte
+    words (88 = 24 + 64 for the paper's numbers)."""
+    dispatch = num_ops * 4
+    atan_table = cordic_iters * 4
+    return {
+        "dispatch_table_bytes": dispatch,
+        "cordic_table_bytes": atan_table,
+        "total_bytes": dispatch + atan_table,
+    }

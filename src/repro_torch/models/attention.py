@@ -1,24 +1,29 @@
-"""GQA attention for prefill and single-token decode.
+"""GQA attention for prefill, single-token decode and segment decode.
 
 Reference: ``src/repro/models/attention.py`` — the GQA path only:
 ``attn_specs``, ``init_attn_cache``, ``reset_attn_cache_slot``,
-``_prefill_cache`` and ``attention_forward`` for prefill and S == 1
-decode, with sliding windows (rolling-buffer caches of ``window`` rows)
-and gemma2's attention-score softcap.  Prefill attention runs kernel K4
-(``kernels.flashattn``, the function of ``chunked_attention``, score
-softcap included); ``decode_attention`` stays plain PyTorch, as the
-reference has no Pallas kernel for it.  Score capping is f32 on every
-rung (the reference's policy).  MLA, the int8 KV cache and segment
-decode (speculative verify) wait for later slices (ROADMAP.md queue 1
-items 7, 9 and 10).
+``truncate_attn_cache_slot``, ``_prefill_cache`` and
+``attention_forward`` for prefill, S == 1 decode and S > 1 segments
+(the speculative verify and chunked prefill), with sliding windows
+(rolling-buffer caches of ``window`` rows) and gemma2's attention-score
+softcap.  Prefill attention runs kernel K4 (``kernels.flashattn``, the
+function of ``chunked_attention``, score softcap included);
+``decode_attention`` and ``decode_attention_multi`` stay plain PyTorch,
+as the reference has no Pallas kernel for them.  Score capping is f32 on
+every rung (the reference's policy).  MLA and the int8 KV cache wait for
+later slices (ROADMAP.md queue 1 items 10 and 7b).
 
 Caches are updated IN PLACE (the reference returns new arrays): a
-prefill writes rows ``[0, S)`` of the cache it is given, a decode writes
-one row per lane.  With ``lane_mask`` a decode writes only member lanes
-and computes every non-member lane as the reference's pristine masked
-view would — that lane attends to its own fresh key alone, so its output
-is its fresh value row — without materialising a masked copy of the
-pool.
+prefill writes rows ``[0, S)`` of the cache it is given, a decode one
+row per lane, a segment S rows per lane.  With ``lane_mask`` a decode
+writes only member lanes and computes every non-member lane as the
+reference's pristine masked view would — that lane attends to its own
+fresh key alone, so its output is its fresh value row — without
+materialising a masked copy of the pool.  A segment given ``seg_aux``
+records there, before it writes, the rows it overwrites (``slot``
+(B, S) and the old ``k``, ``v``, ``pos`` rows): the rollback state
+``models.model.commit_segment`` restores rejected rows from, which the
+reference keeps as a whole pre-segment copy of the cache.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ __all__ = [
     "attn_specs",
     "attention_forward",
     "decode_attention",
+    "decode_attention_multi",
     "init_attn_cache",
     "reset_attn_cache_slot",
+    "truncate_attn_cache_slot",
 ]
 
 
@@ -74,6 +81,22 @@ def reset_attn_cache_slot(cache: dict, slot) -> dict:
     return cache
 
 
+def truncate_attn_cache_slot(cache: dict, slot, keep_pos) -> dict:
+    """Truncate-to-position form of :func:`reset_attn_cache_slot`, in
+    place: entries of ONE batch slot whose position is ``>= keep_pos``
+    go back to the pristine fill (payloads 0, pos -1); entries below are
+    untouched bit for bit.  A pristine fill equals the pre-write
+    contents only while the rolling buffer has not wrapped; a wrapped
+    rollback goes through ``models.model.commit_segment``."""
+    slot = int(slot)
+    drop = cache["pos"][slot] >= keep_pos                      # (L,)
+    for k, v in cache.items():
+        row = v[slot]
+        mask = drop.reshape((-1,) + (1,) * (row.ndim - 1))
+        row.masked_fill_(mask, -1 if k == "pos" else 0)
+    return cache
+
+
 def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None, cap=None):
     """Single-token decode: q (B,1,H,D) vs cache (B,L,KV,D); kp (B,L)
     slot positions (-1 = unwritten).  Plain PyTorch, f32 scores, capped
@@ -100,6 +123,70 @@ def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None, cap=No
     return out.reshape(B, 1, H, -1).to(q.dtype)
 
 
+def decode_attention_multi(q, k_cache, v_cache, kp, *, q_positions, window=None, cap=None):
+    """Segment decode: S queries against a cache (the speculative-verify
+    / chunked-continuation path).  q (B,S,H,D) vs cache (B,L,KV,D); kp
+    (B,L) slot positions (-1 = unwritten); q_positions (B,S).  Each query
+    masks keys by its OWN position, so within-segment causality holds
+    after the whole segment's k/v are in the cache.  Plain PyTorch, f32
+    scores (q is scaled in f32, as the reference does here)."""
+    B, S, H, Dq = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qr = (q.to(torch.float32) * (1.0 / math.sqrt(Dq))).reshape(B, S, KV, G, Dq)
+    s = torch.einsum("bskgd,blkd->bkgsl", qr, k_cache.to(torch.float32))
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    qp = q_positions[:, None, None, :, None]                   # (B,1,1,S,1)
+    kpb = kp[:, None, None, None, :]                           # (B,1,1,1,L)
+    valid = (kpb >= 0) & (kpb <= qp)
+    if window is not None:
+        valid = valid & (kpb > qp - window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgsl,blkd->bskgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, S, H, -1).to(q.dtype)
+
+
+def _segment_attention(cache: dict, q, k, v, positions, layer: LayerSpec, cfg: ModelConfig,
+                       seg_aux: Optional[dict]):
+    """S > 1 tokens against the cache at explicit positions, in place
+    (the reference's segment path).  Full attention writes all S rows,
+    then scores the S queries in one batch; a sliding window interleaves
+    store and query per position, so that a write that wraps the rolling
+    buffer cannot hide a row an earlier query's window still covers."""
+    if "k_exp" in cache:
+        raise NotImplementedError("int8 KV cache: ROADMAP.md queue 1 item 7b")
+    B, S = positions.shape
+    L = cache["k"].shape[1]
+    if S > L:
+        raise ValueError(f"segment length {S} exceeds cache length {L}")
+    slots = (positions % L).to(torch.long)                     # (B, S)
+    lanes = torch.arange(B, device=positions.device)
+    if seg_aux is not None:
+        seg_aux["slot"] = slots
+        for name in ("k", "v", "pos"):
+            seg_aux[name] = cache[name][lanes[:, None], slots]
+
+    def store(s_i):
+        for name, new in (("k", k[:, s_i]), ("v", v[:, s_i]), ("pos", positions[:, s_i])):
+            buf = cache[name]
+            buf[lanes, slots[:, s_i]] = new.to(buf.dtype)
+
+    if layer.window is None:
+        for s_i in range(S):
+            store(s_i)
+        return decode_attention_multi(q, cache["k"], cache["v"], cache["pos"],
+                                      q_positions=positions, cap=cfg.attn_softcap)
+    outs = []
+    for s_i in range(S):
+        store(s_i)
+        outs.append(decode_attention(q[:, s_i:s_i + 1], cache["k"], cache["v"], cache["pos"],
+                                     q_position=positions[:, s_i], window=layer.window,
+                                     cap=cfg.attn_softcap))
+    return torch.cat(outs, dim=1)
+
+
 def _prefill_cache(cache: dict, k, v, positions, window) -> dict:
     """Write a prefill segment starting at position 0 into ``cache`` in
     place: rows [0, S) for full attention; for a sliding window the
@@ -123,11 +210,14 @@ def _prefill_cache(cache: dict, k, v, positions, window) -> dict:
 def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: LayerSpec, *,
                       positions: torch.Tensor, mode: str = "precise", cache=None,
                       prefill: bool = False, lane_mask: Optional[torch.Tensor] = None,
-                      rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                      rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      seg_aux: Optional[dict] = None):
     """x (B,S,d) -> (out, cache).  ``cache=None``: no cache (positions
     must be ``arange(S)``); ``prefill``: K4 attention + rows [0, S)
-    written; S == 1: decode against the cache.  ``rope``: the (sin, cos)
-    tables of ``positions`` at this rung, built once a pass by the model
+    written; S == 1: decode against the cache; S > 1: a segment at
+    ``positions`` (B,S) against the cache, its overwritten rows recorded
+    in ``seg_aux`` when given.  ``rope``: the (sin, cos) tables of
+    ``positions`` at this rung, built once a pass by the model
     (``rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)``);
     without them they are built here."""
     B, S, _ = x.shape
@@ -148,7 +238,7 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
             cache = _prefill_cache(cache, k, v, positions, layer.window)
     elif S == 1:
         if "k_exp" in cache:
-            raise NotImplementedError("int8 KV cache: ROADMAP.md queue 1 item 7")
+            raise NotImplementedError("int8 KV cache: ROADMAP.md queue 1 item 7b")
         L = cache["k"].shape[1]
         slot = (positions[:, 0] % L).to(torch.long)
         lanes = torch.arange(B, device=x.device)
@@ -169,8 +259,7 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
             own = v.repeat_interleave(G, dim=2).to(out.dtype)
             out = torch.where(lane_mask.to(torch.bool)[:, None, None, None], out, own)
     else:
-        raise NotImplementedError(
-            "segment decode (speculative verify / chunked prefill): ROADMAP.md queue 1 item 9")
+        out = _segment_attention(cache, q, k, v, positions, layer, cfg, seg_aux)
 
     out = pdot(out.reshape(B, S, cfg.n_heads * cfg.head_dim), params["wo"], mode,
                wq=params.get("wo_q"))

@@ -1,11 +1,13 @@
 """The language model: embeddings -> stacked periods -> head.
 
 Reference: ``src/repro/models/model.py`` — ``param_specs``,
-``init_params``, ``init_caches``, ``write_cache_slot``,
-``reset_cache_slot``, ``prefill_step`` and ``decode_step`` (with
-``lane_mask``).  Training (``train_loss``), ``segment_step`` /
-``commit_segment`` and ``truncate_cache_slot`` wait for later slices
-(ROADMAP.md queue 1 items 9 and 12).
+``init_params``, ``init_caches``, ``cache_layout``, ``write_cache_slot``,
+``reset_cache_slot``, ``truncate_cache_slot``, ``prefill_step``,
+``decode_step`` (with ``lane_mask``), and the segment steps
+``segment_step`` / ``commit_segment`` that the paged server's chunked
+prefill and the speculative verify run on.  Training (``train_loss``)
+waits for ROADMAP.md queue 1 item 12; the paged server and speculative
+decoding themselves for item 9.
 
 Parameters and caches keep the reference's trees: nested dicts whose
 ``periods`` leaves are stacked ``(n_periods, ...)``; the forward walks
@@ -30,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.compat import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Spec, init_from_specs, rms_norm, rope_tables, softcap
 from repro_torch.models.transformer import init_period_cache, period_forward, period_specs
@@ -38,10 +41,14 @@ __all__ = [
     "param_specs",
     "init_params",
     "init_caches",
+    "cache_layout",
     "prefill_step",
     "decode_step",
+    "segment_step",
+    "commit_segment",
     "reset_cache_slot",
     "write_cache_slot",
+    "truncate_cache_slot",
     "layer_params",
 ]
 
@@ -90,6 +97,41 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     dev = resolve_device(device)
     one = init_period_cache(cfg, batch, max_len, dtype, dev)
     return _map(lambda x: x[None].repeat((cfg.n_periods,) + (1,) * x.ndim), one)
+
+
+def cache_layout(cfg: ModelConfig, max_len: int):
+    """The model's cache-memory layout, one entry per period position:
+    ``(key, kind, L)`` with ``L`` the POSITION-INDEXED cache length
+    (``min(window, max_len)`` for sliding-window attention, ``max_len``
+    for full attention / MLA) or ``None`` for cumulative state (SSM)."""
+    out = []
+    for i, spec in enumerate(cfg.period):
+        if spec.kind == "attn":
+            L = min(spec.window, max_len) if spec.window else max_len
+            out.append((f"pos{i}", spec.kind, L))
+        elif spec.kind == "mla":
+            out.append((f"pos{i}", "mla", max_len))
+        else:
+            out.append((f"pos{i}", spec.kind, None))
+    return out
+
+
+def truncate_cache_slot(pool: dict, cfg: ModelConfig, slot: int, keep_pos,
+                        ssm_snapshot=None) -> dict:
+    """Roll ONE batch slot of a stacked pool back, in place, so only
+    entries at positions ``< keep_pos`` survive (the others get the
+    pristine fill); returns ``pool``.  SSM caches need ``ssm_snapshot``
+    in the reference; the port has no SSM layers yet (ROADMAP.md queue 1
+    item 10), so a snapshot raises."""
+    if ssm_snapshot is not None:
+        raise NotImplementedError("SSM cache snapshots: ROADMAP.md queue 1 item 10")
+    for i, spec in enumerate(cfg.period):
+        if spec.kind != "attn":
+            raise NotImplementedError(f"{spec.kind} caches: ROADMAP.md queue 1 item 10")
+        cache = pool[f"pos{i}"]
+        for p in range(cache["pos"].shape[0]):
+            attn.truncate_attn_cache_slot(_map(lambda c: c[p], cache), slot, keep_pos)
+    return pool
 
 
 def reset_cache_slot(caches: dict, cfg: ModelConfig, slot: int) -> dict:
@@ -143,14 +185,26 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor, mode: str) -> torch.T
     return softcap(logits, cfg.final_softcap, mode)
 
 
-def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None):
+def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
+            seg_aux=None):
+    """Walk the periods.  ``seg_aux``: a dict a segment pass fills with
+    every layer's rollback state, stacked to leaves ``(n_periods, ...)``
+    under ``pos{i}``."""
     # every attention layer rotates by (head_dim, rope_base): one pair of
     # tables a pass (one K3 launch on the FAST rung), not one a layer
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)
+    per_period = []
     for i in range(cfg.n_periods):
         cache_i = None if caches is None else _map(lambda c: c[i], caches)
+        aux_i = {} if seg_aux is not None else None
         x, _ = period_forward(layer_params(params, i), x, cfg, positions=positions, mode=mode,
-                              caches=cache_i, prefill=prefill, lane_mask=lane_mask, rope=rope)
+                              caches=cache_i, prefill=prefill, lane_mask=lane_mask, rope=rope,
+                              seg_aux=aux_i)
+        per_period.append(aux_i)
+    if seg_aux is not None:
+        for key in per_period[0]:
+            seg_aux[key] = {name: torch.stack([a[key][name] for a in per_period])
+                            for name in per_period[0][key]}
     return x
 
 
@@ -189,3 +243,68 @@ def decode_step(params: dict, token: torch.Tensor, position: torch.Tensor, cache
     x = _layers(params, x, caches, cfg, positions, mode, prefill=False, lane_mask=lane_mask)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head(params, cfg, x[:, 0], mode), caches
+
+
+def segment_step(params: dict, tokens: torch.Tensor, positions: torch.Tensor, caches: dict,
+                 cfg: ModelConfig, mode: str = "exact",
+                 lane_mask: Optional[torch.Tensor] = None):
+    """Mid-sequence segment forward: ``tokens`` (B,S) at explicit
+    ``positions`` (B,S) against populated caches, all S positions in one
+    pass (the speculative verify, a chunk of the chunked prefill).
+    Returns ``(logits (B,S,V) f32, caches, seg_aux)``: the caches, updated
+    in place, hold the whole segment; ``seg_aux`` holds, per period
+    position ``pos{i}``, the slots the segment wrote (``slot`` (P,B,S))
+    and their pre-segment rows (``k``, ``v`` (P,B,S,KV,D), ``pos``
+    (P,B,S)), from which :func:`commit_segment` rolls rejected rows back.
+    The logits are ``_head``'s per rung (the FAST final softcap on K5),
+    the RoPE tables built once from the (B,S) positions (one K3 launch
+    on the FAST rung).  ``lane_mask`` (B,) zeroes non-member lanes at the
+    embedding, as the reference does; their rows are restored by
+    ``commit_segment(active=lane_mask)``."""
+    x = _embed(params, tokens, cfg)
+    if mode == "exact":
+        x = x.to(torch.float32)
+    if lane_mask is not None:
+        x = x * lane_mask.to(x.dtype)[:, None, None]
+    seg_aux: dict = {}
+    x = _layers(params, x, caches, cfg, positions.to(torch.int32), mode, prefill=False,
+                seg_aux=seg_aux)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _head(params, cfg, x, mode), caches, seg_aux
+
+
+def commit_segment(caches: dict, seg_aux: dict, cfg: ModelConfig, *, keep_pos, keep_count,
+                   active) -> dict:
+    """Merge a verified segment into the cache pool, in place, rolling
+    REJECTED rows back bit for bit; returns ``caches``.
+
+    The reference takes ``commit_segment(before, after, seg_aux, cfg,
+    ...)`` and selects, per row, the pre-segment copy where the row's new
+    position is ``> keep_pos`` or its lane is not ``active``.  The port
+    keeps one pool, updated in place by :func:`segment_step`, so it takes
+    that pool (the reference's ``after``) and restores those rows from
+    the pre-segment rows ``seg_aux`` recorded (the only rows the segment
+    changed, so the outcome equals the reference's leaf for leaf, wrapped
+    sliding-window slots included).  ``keep_pos`` (B,): last accepted
+    position; ``keep_count`` (B,): accepted positions, which only the
+    reference's SSM layers read; ``active`` (B,) bool."""
+    del keep_count  # the SSM rollback's (ROADMAP.md queue 1 item 10)
+    for i, spec in enumerate(cfg.period):
+        key = f"pos{i}"
+        if spec.kind != "attn":
+            raise NotImplementedError(f"{spec.kind} caches: ROADMAP.md queue 1 item 10")
+        cache, aux = caches[key], seg_aux[key]
+        slots = aux["slot"]                                        # (P, B, S)
+        P, B, S = slots.shape
+        per = torch.arange(P, device=slots.device)[:, None, None]
+        lanes = torch.arange(B, device=slots.device)[None, :, None]
+        new_pos = cache["pos"][per, lanes, slots]
+        keep = torch.as_tensor(keep_pos, device=slots.device).reshape(1, B, 1)
+        act = torch.as_tensor(active, device=slots.device).to(torch.bool).reshape(1, B, 1)
+        rejected = (new_pos > keep) | ~act
+        for name in ("k", "v", "pos"):
+            buf = cache[name]
+            cur = buf[per, lanes, slots]
+            mask = rejected.reshape(rejected.shape + (1,) * (cur.ndim - 3))
+            buf[per, lanes, slots] = torch.where(mask, aux[name], cur)
+    return caches

@@ -50,17 +50,24 @@ def period_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions
                    mode: str = "precise", caches: Optional[dict] = None, prefill: bool = False,
                    lane_mask: Optional[torch.Tensor] = None,
                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   seg_aux: Optional[dict] = None,
                    ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Apply one period; returns (x, caches) with ``caches`` updated in
     place (the same dict).  ``rope``: the pass's (sin, cos) tables, handed
-    to every attention layer (see ``attention.attention_forward``)."""
+    to every attention layer (see ``attention.attention_forward``).
+    ``seg_aux``: a dict that a segment pass fills with each layer's
+    rollback state under ``seg_aux[f"pos{i}"]`` (the rows the segment
+    overwrote; the reference records its SSM layers' states there)."""
     for i, spec in enumerate(cfg.period):
         p = params[f"pos{i}"]
         cache_i = caches.get(f"pos{i}") if caches is not None else None
+        layer_aux = {} if seg_aux is not None else None
         h, _ = attn.attention_forward(
             p["mixer"], x, cfg, spec, positions=positions, mode=mode, cache=cache_i,
-            prefill=prefill, lane_mask=lane_mask, rope=rope,
+            prefill=prefill, lane_mask=lane_mask, rope=rope, seg_aux=layer_aux,
         )
+        if seg_aux is not None:
+            seg_aux[f"pos{i}"] = layer_aux
         x = x + h
         x = x + swiglu_mlp(p["ffn"], x, mode, cfg.rms_eps)
     return x, caches

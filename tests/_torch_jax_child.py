@@ -4,7 +4,7 @@ must be set before JAX starts, hence a process of its own), so every
 bf16 cast of the FAST rung rounds where the source says it does.
 
 Usage: XLA_FLAGS=--xla_allow_excess_precision=false \
-           python tests/_torch_jax_child.py OUT.npz [ARCH]
+           python tests/_torch_jax_child.py OUT.npz [ARCH [segment]]
 
 ARCH is ``deepseek_7b`` (default; tests/test_torch_model.py) or
 ``gemma2_2b`` (tests/test_torch_gemma2.py).  Writes the smoke model's
@@ -15,6 +15,15 @@ parameters and int8 weight payloads, and for each of the ``exact`` and
 * gemma2_2b: DECODE_STEPS greedy decode steps, each feeding the argmax
   of the step before (``{mode}/tokens``), so the 8-row sliding-window
   buffer wraps; logits of every step and the caches after the last.
+
+With ``segment`` (tests/test_torch_segment.py) it writes instead an
+exact-rung two-lane prefill of SEG_PROMPT (``c1/...``), and from that
+cache, per mode, one ``segment_step`` of SEG_TOKENS at positions
+11..15 (``{mode}/seg/logits``, ``{mode}/seg/after/...``; gemma2's 8-row
+buffers wrap inside it), the same segment with lane 1 masked
+(``{mode}/masked/...``), and ``commit_segment`` of the segment for
+keep_count 1..5 on both lanes (``{mode}/commit{k}/...``) and for
+keep_count 3 with lane 1 inactive (``{mode}/commit_inactive/...``).
 """
 
 import os
@@ -29,12 +38,22 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import smoke  # noqa: E402
 from repro.core.quantization import QuantizedWeightCache  # noqa: E402
-from repro.models import decode_step, init_caches, init_params, prefill_step  # noqa: E402
+from repro.models import (  # noqa: E402
+    commit_segment,
+    decode_step,
+    init_caches,
+    init_params,
+    prefill_step,
+    segment_step,
+)
 from repro.models.layers import attach_quantized_weights  # noqa: E402
 
 TOKENS = np.array([[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11]], np.int32)
 NEXT = np.array([[12]], np.int32)
 DECODE_STEPS = 6
+SEG_PROMPT = np.stack([TOKENS[0], TOKENS[0] + 20]).astype(np.int32)
+SEG_TOKENS = np.array([[12, 13, 14, 15, 16], [32, 33, 34, 35, 36]], np.int32)
+SEG_POSITIONS = np.tile(np.arange(11, 16, dtype=np.int32), (2, 1))
 
 
 def _save(flat, key, leaves):
@@ -42,13 +61,48 @@ def _save(flat, key, leaves):
         flat[f"{key}/{k}"] = np.asarray(v)
 
 
-def main(out, arch="deepseek_7b"):
+def _save_tree(flat, key, tree):
+    for pos in tree:
+        _save(flat, f"{key}/{pos}", tree[pos])
+
+
+def segments(flat, cfg, pa):
+    """The segment-step records of the module docstring."""
+    S = SEG_TOKENS.shape[1]
+    _, c1 = jax.jit(lambda p, t, c: prefill_step(p, t, c, cfg, mode="exact"))(
+        pa, jnp.asarray(SEG_PROMPT), init_caches(cfg, 2, 32, dtype=jnp.float32))
+    _save_tree(flat, "c1", c1)
+    commit = jax.jit(lambda b, a, x, kp, kc, act: commit_segment(
+        b, a, x, cfg, keep_pos=kp, keep_count=kc, active=act))
+    toks, poss = jnp.asarray(SEG_TOKENS), jnp.asarray(SEG_POSITIONS)
+    for mode in ("exact", "fast"):
+        seg = jax.jit(lambda p, t, q, c, m: segment_step(p, t, q, c, cfg, mode=mode, lane_mask=m))
+        logits, after, aux = seg(pa, toks, poss, c1, jnp.ones((2,), bool))
+        flat[f"{mode}/seg/logits"] = np.asarray(logits)
+        _save_tree(flat, f"{mode}/seg/after", after)
+        m_logits, m_after, _ = seg(pa, toks, poss, c1, jnp.asarray([True, False]))
+        flat[f"{mode}/masked/logits"] = np.asarray(m_logits)
+        _save_tree(flat, f"{mode}/masked/after", m_after)
+        for k in range(1, S + 1):
+            kc = jnp.full((2,), k, jnp.int32)
+            merged = commit(c1, after, aux, poss[:, k - 1], kc, jnp.ones((2,), bool))
+            _save_tree(flat, f"{mode}/commit{k}", merged)
+        merged = commit(c1, after, aux, poss[:, 2], jnp.full((2,), 3, jnp.int32),
+                        jnp.asarray([True, False]))
+        _save_tree(flat, f"{mode}/commit_inactive", merged)
+
+
+def main(out, arch="deepseek_7b", what=""):
     cfg = smoke(arch)
     params = init_params(cfg, jax.random.PRNGKey(3))
     pa = attach_quantized_weights(params, QuantizedWeightCache())
     flat = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(pa)[0]:
         flat["param/" + "/".join(k.key for k in path)] = np.asarray(leaf)
+    if what == "segment":
+        segments(flat, cfg, pa)
+        np.savez(out, **flat)
+        return
     for mode in ("exact", "fast"):
         prefill = jax.jit(lambda p, t, c: prefill_step(p, t, c, cfg, mode=mode))
         decode = jax.jit(lambda p, t, q, c: decode_step(p, t, q, c, cfg, mode=mode))

@@ -46,6 +46,7 @@ from repro_torch.kernels.flashattn import (  # noqa: E402
     p_rounding_case,
 )
 from repro_torch.kernels.fused_mlp import fused_swiglu, fused_swiglu_plain  # noqa: E402
+from repro_torch.kernels.linalg import qmatmul_deferred, qmatmul_deferred_plain  # noqa: E402
 from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain  # noqa: E402
 
 # (B, S, H, KV, D, Dv, causal, window, dtype)
@@ -456,3 +457,59 @@ def test_cuda_rope_tables_match_plain(cuda, rope_dim, shape):
         want = rope_sincos_plain(pos, rope_dim)
         assert got[0].shape == shape + (rope_dim // 2,)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the deferred-correction matmul (C3): M, K, N at and across the kernel's
+# 64 x 64 output blocks and 16-deep k steps, tile_k from 1 to K (ragged
+# last tiles), both roundings, saturating and wrapping combines; any
+# int32 words (tile sums wrap mod 2**64) and Q16.16 operands near
+# +-32767.0 whose tiles saturate; bit-exact
+DEFERRED_DIMS = (1, 17, 33, 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", DEFERRED_DIMS)
+@pytest.mark.parametrize("K", DEFERRED_DIMS)
+@pytest.mark.parametrize("N", DEFERRED_DIMS)
+def test_cuda_qmatmul_deferred_edges_match_plain(cuda, M, K, N):
+    g = torch.Generator().manual_seed(M * 7 + K * 3 + N)
+    a = torch.randint(-(2**31), 2**31 - 1, (M, K), generator=g, dtype=torch.int32).to(cuda)
+    b = torch.randint(-(2**31), 2**31 - 1, (K, N), generator=g, dtype=torch.int32).to(cuda)
+    for tile_k in sorted({1, 7, 32, 40, K}):
+        for rounding in (True, False):
+            for saturate in (True, False):
+                kw = dict(tile_k=tile_k, rounding=rounding, saturate=saturate)
+                assert torch.equal(qmatmul_deferred(a, b, **kw),
+                                   qmatmul_deferred_plain(a, b, **kw)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_k", [1, 2, 32])
+@pytest.mark.parametrize("frac_bits", [16, 1, 31])
+def test_cuda_qmatmul_deferred_saturating_operands_match_plain(cuda, tile_k, frac_bits):
+    g = torch.Generator().manual_seed(tile_k + frac_bits)
+    a = torch.randint(32760 * 65536, 2**31 - 1, (130, 96), generator=g, dtype=torch.int32)
+    a = a * (torch.randint(0, 2, a.shape, generator=g, dtype=torch.int32) * 2 - 1)
+    b = torch.randint(-65536, 65537, (96, 70), generator=g, dtype=torch.int32)
+    a, b = a.to(cuda), b.to(cuda)
+    outs = {}
+    for saturate in (True, False):
+        kw = dict(tile_k=tile_k, frac_bits=frac_bits, saturate=saturate)
+        outs[saturate] = qmatmul_deferred(a, b, **kw)
+        assert torch.equal(outs[saturate], qmatmul_deferred_plain(a, b, **kw)), kw
+    if frac_bits == 16 and tile_k == 1:   # the saturating combine saturated
+        assert int((outs[True].abs() == 2**31 - 1).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_engine_matmul_launches_the_kernel_once(cuda):
+    from repro_torch.core import MathEngine, to_fixed
+
+    g = torch.Generator().manual_seed(0)
+    a = to_fixed(torch.rand(300, 200, generator=g) * 2 - 1).to(cuda)
+    b = to_fixed(torch.rand(200, 100, generator=g) * 2 - 1).to(cuda)
+    eng = MathEngine("q16_16")
+    before = qmatmul_deferred.launches
+    got = eng.call("matmul", a, b)
+    assert qmatmul_deferred.launches == before + 1
+    assert torch.equal(got, qmatmul_deferred_plain(a, b))
