@@ -94,7 +94,25 @@ Phases, each printing JSON lines:
    the 4500-token exact-rung prefill (the local layers' rolling buffers
    wrap inside it) whose argmaxes equal sequential decode at ``f32``, a
    commit with keep_count 2 that restores the wrapped slots bit for bit,
-   and the same segment on the FAST rung (K1, K2, one K3 and one K5).
+   and the same segment on the FAST rung (K1, K2, one K3 and one K5);
+4b. (after 4's segments, on the same f32 tensors) deepseek-7b on the
+   paged pool (4 slots, page 16, chunk 128): the 8 requests each return
+   16 tokens with finite logits, the q16_16 request alone gives its
+   batch tokens, the pool drains, K1-K3 run (K3 once per FAST chunk and
+   pass) and K4 never; tokens/s, TTFT(480) and one ``device_view``
+   gather timed beside the contiguous server's; then 4 speculative
+   requests (17, 96, 300, 480 tokens, k = 4) at ``q8_8`` and at
+   ``q16_16`` drafts against paged vanilla f32 on the same prompts:
+   equal, or different only at a near tie (top-2 margin of the vanilla
+   logits below 1e-2 at the first differing position), one K3 and the
+   same K1 / K2 per draft pass; then 4 f32 requests sharing a 256-token
+   prefix (chunk 16) against the same run without sharing: tokens equal,
+   3 prefix hits, 768 tokens reused;
+5b. (after 5's segments) gemma2-2b's 4500-token f32 request speculatively
+   (k = 4, q16_16 drafts) on the contiguous pool (the draft's rollback
+   across the window wrap) and on the paged pool (chunk 512): both give
+   the mixed run's f32 tokens by the near-tie rule, one K3 and one K5
+   per draft pass.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -534,10 +552,14 @@ def check_kernels(gen, strict: bool):
 
     # K1 -------------------------------------------------------------------
     # deepseek-7b (K, N): wq/wk/wv/wo, w_down; gemma2-2b: wq, wk/wv, wo,
-    # w_down — at decode (M=1, 4), prefill (512) and gemma2's 4500-token
-    # prefill; the model runs the float epilogue, q16 and int32 once each
-    k1_cases = [(m, k, n, "float") for m in (1, 4, 512) for (k, n) in ((4096, 4096), (11008, 4096))]
+    # w_down — at decode (M=1, 4), prefill (512), the paged server's
+    # 128-row prefill chunks and gemma2's 4500-token prefill; the model
+    # runs the float epilogue, q16 and int32 once each
+    k1_cases = [(m, k, n, "float") for m in (1, 4, PAGED_CHUNK, 512)
+                for (k, n) in ((4096, 4096), (11008, 4096))]
     k1_cases += [(4, 4096, 4096, "q16"), (512, 4096, 4096, "int32")]
+    k1_cases += [(PAGED_CHUNK, k, n, epi) for (k, n) in ((4096, 4096), (11008, 4096))
+                 for epi in ("q16", "int32")]
     k1_cases += [(m, k, n, "float") for m in (1, 4, 512, LONG_PROMPT)
                  for (k, n) in ((2304, 2048), (2304, 1024), (2048, 2304), (9216, 2304))]
     k1_cases += [(m, k, n, epi) for (m, k, n) in ((4, 2304, 2048), (LONG_PROMPT, 9216, 2304))
@@ -581,8 +603,9 @@ def check_kernels(gen, strict: bool):
           "shapes": [f"M={m} K={k} N={n}" for m, k, n in k1_edges], "bit_exact": True})
 
     # K2 -------------------------------------------------------------------
-    # deepseek-7b (K=4096, F=11008) and gemma2-2b (K=2304, F=9216)
-    k2_cases = [(m, 4096, 11008) for m in (1, 480, 512)]
+    # deepseek-7b (K=4096, F=11008) and gemma2-2b (K=2304, F=9216); M=4 is
+    # a tick of four lanes and a draft pass, M=128 a paged prefill chunk
+    k2_cases = [(m, 4096, 11008) for m in (1, 4, PAGED_CHUNK, 480, 512)]
     k2_cases += [(m, 2304, 9216) for m in (1, 4, 9, 512, LONG_PROMPT)]
     for m, k, f in k2_cases:
         x, wg, wu = i8(m, k), i8(k, f), i8(k, f)
@@ -1460,7 +1483,7 @@ def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_l
                rec["launches_per_decode_tick"][lv]["cordic_sincos"])
         require(got == (want, want), f"{cfg.name}: a {lv} prefill / decode pass launched K3 "
                 f"{got} times, want {want}")
-    return rec, srv, prompts
+    return rec, srv, prompts, [fins[r.rid].tokens for r in reqs]
 
 
 #: one verify pass: the next token and k = 4 drafts
@@ -1615,24 +1638,35 @@ def segment_phase(srv, cfg, prompt, max_len: int, keep_count: int, chunked: bool
     return {"segment_fast": fast_launches}
 
 
-def deepseek_phase(seed: int):
+def deepseek_phase(seed: int, strict: bool):
     """deepseek-7b: the slice-1 serving path (K1-K4), then the segment
-    steps on its parameters."""
-    rec, srv, prompts = _serve_model("deepseek_7b", seed, 1024, PROMPT_LENS, LEVELS, (480,))
+    steps on its parameters, then (slice 8) the paged pool, speculative
+    requests and prefix sharing on the same f32 parameters.  ``strict``:
+    the tree must have the paged pool (a --root checkout may predate it)."""
+    require(_has_paged() or not strict, "repro_torch.runtime.PagedCachePool is missing")
+    rec, srv, prompts, tokens = _serve_model("deepseek_7b", seed, 1024, PROMPT_LENS, LEVELS,
+                                             (480,))
     for name in ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention"):
         require(rec["launches"][name] > 0, f"kernel {name} was not launched while serving")
     paths = {"serve": rec["launches"]}
     if _has_c3():
         prompt = next(p for p in prompts if len(p) == 480)
         paths.update(segment_phase(srv, srv.cfg, prompt, 1024, 3, True, seed))
+    if _has_paged():
+        cfg, params = srv.cfg, _release(srv)
+        del srv
+        paths.update(deepseek_paged_phases(cfg, params, prompts, tokens, rec, seed))
     return paths
 
 
-def gemma2_phase(seed: int):
+def gemma2_phase(seed: int, strict: bool):
     """gemma2-2b: sliding window, softcaps, tied head (K1-K5), then a
-    segment across the local layers' window wrap."""
-    rec, srv, prompts = _serve_model("gemma2_2b", seed, 8192, PROMPT_LENS + (LONG_PROMPT, LONG_PROMPT),
-                                     LEVELS + ("q16_16", "f32"), (480, LONG_PROMPT))
+    segment across the local layers' window wrap, then (slice 8) its
+    4500-token request served speculatively on both pools."""
+    require(_has_paged() or not strict, "repro_torch.runtime.PagedCachePool is missing")
+    rec, srv, prompts, tokens = _serve_model(
+        "gemma2_2b", seed, 8192, PROMPT_LENS + (LONG_PROMPT, LONG_PROMPT),
+        LEVELS + ("q16_16", "f32"), (480, LONG_PROMPT))
     launches = rec["launches"]
     for name in ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention",
                  "universal_unary"):
@@ -1656,6 +1690,349 @@ def gemma2_phase(seed: int):
         prompt = next(p for p in prompts if len(p) == LONG_PROMPT)
         seg = segment_phase(srv, srv.cfg, prompt, 8192, 2, False, seed)
         paths.update(seg)
+    if _has_paged():
+        # the 4500-token f32 request of the mixed run (the last one)
+        prompt, want = prompts[-1], tokens[-1]
+        cfg, params = srv.cfg, _release(srv)
+        del srv
+        paths.update(gemma2_spec_phase(cfg, params, prompt, want))
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phases 4b-5b: the paged pool and ladder-speculative decoding (slice 8)
+# ---------------------------------------------------------------------------
+
+#: the paged servers' page and chunk, and the speculative rounds' drafts
+PAGE, PAGED_CHUNK, SPEC_K = 16, 128, 4
+#: the speculative requests' prompt lengths (taken from the mixed workload)
+SPEC_LENS = (17, 96, 300, 480)
+#: prefix sharing: 4 f32 requests, a 256-token prefix and 32-token tails
+PREFIX_LEN, TAIL_LEN, PREFIX_NEW = 256, 32, 8
+#: gemma2-2b's paged chunk
+G2_CHUNK = 512
+#: a speculative stream may differ from vanilla only at a near tie: the
+#: top-2 margin of the vanilla logits at the first differing position
+NEAR_TIE = 1e-2
+
+
+def _has_paged() -> bool:
+    """False only for a --root checkout older than the paged pool."""
+    try:
+        from repro_torch.runtime import PagedCachePool  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _release(srv):
+    """Drop a server's KV pool and return its f32 parameter tensors (the
+    int8 copies go with the server)."""
+    import torch
+
+    def strip(node):
+        if isinstance(node, dict):
+            return {k: strip(v) for k, v in node.items() if not k.endswith("_q")}
+        return node
+
+    params = strip(srv.params)
+    srv.pool = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
+
+
+def _near_tie(cfg, params, prompt, want, got) -> dict:
+    """{"equal": bool} and, where ``got`` differs from ``want`` (the vanilla
+    stream, prompt included), the first differing generated position and
+    the top-2 margin there of the exact-rung logits of the vanilla prefix."""
+    import torch
+
+    from repro_torch import models as tm
+
+    if got == want:
+        return {"equal": True}
+    i = next(j for j in range(len(prompt), len(want)) if j >= len(got) or got[j] != want[j])
+    caches = tm.init_caches(cfg, 1, len(want) + 1, device=torch.device(DEVICE))
+    logits, _ = tm.prefill_step(params, torch.tensor([want[:i]], dtype=torch.int32,
+                                                     device=torch.device(DEVICE)),
+                                caches, cfg, mode="exact")
+    top = logits[0].topk(2).values
+    return {"equal": False, "first_diff": i - len(prompt), "margin": (top[0] - top[1]).item()}
+
+
+def _count_drafts(srv) -> list:
+    """Wrap the server's draft table; returns a one-item list counting
+    draft PASSES (k a call)."""
+    n = [0]
+    k = srv.scfg.speculative.k
+
+    def wrap(fn):
+        def counted(*args, **kw):
+            n[0] += k
+            return fn(*args, **kw)
+        return counted
+
+    srv._spec_draft = tuple(wrap(fn) for fn in srv._spec_draft)
+    return n
+
+
+def _pool_drained(srv) -> bool:
+    snap = srv.metrics_snapshot()
+    return all(snap["pages_live"][f"group={gk}"] == 0
+               and snap["pages_free"][f"group={gk}"] == g["alloc"].n_pages - 1
+               for gk, g in srv.cache_ops.groups.items())
+
+
+def deepseek_paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int):
+    """deepseek-7b on the paged pool, then speculative requests at both
+    draft rungs against paged vanilla f32, then prefix sharing against the
+    same run with sharing off.  Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    import repro_torch.runtime.serve as serve_mod
+    from repro_torch.runtime import ContinuousBatchingServer, Request, ServingConfig
+    from repro_torch.runtime import SpeculativeConfig
+
+    dev, sync = torch.device(DEVICE), torch.cuda.synchronize
+    paged = dict(n_slots=4, max_len=1024, cache="paged", page_size=PAGE)
+    paths = {}
+
+    # -- the mixed workload through the paged pool --------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = ContinuousBatchingServer(cfg, params, ServingConfig(**paged, prefill_chunk=PAGED_CHUNK),
+                                   device=dev)
+    sync()
+    setup_s = time.perf_counter() - t0
+    srv.serve([Request(rid=srv.next_rid(), prompt=prompts[0][:8], max_new=2, level=lv)
+               for lv in ("q16_16", "f32")])
+    sync()
+    watch = _LogitWatch(serve_mod)
+    reqs = [Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, level=lv)
+            for p, lv in zip(prompts, LEVELS)]
+    q16_0 = srv.metrics_snapshot()["level_passes_total"].get("level=q16_16", 0)
+    chunks0 = srv.stats["prefill_chunks"]
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    fins = srv.serve(reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    q16_passes = srv.metrics_snapshot()["level_passes_total"].get("level=q16_16", 0) - q16_0
+    chunks = srv.stats["prefill_chunks"] - chunks0
+    drained = _pool_drained(srv)
+    logits_ok = watch.ok()
+    watch.close()
+    got = [fins[r.rid].tokens for r in reqs]
+    agree = sum(int(a == b) for g, c in zip(got, contig_tokens) for a, b in zip(g, c)) \
+        - sum(len(p) for p in prompts)
+    iso = srv.serve([Request(rid=srv.next_rid(), prompt=reqs[0].prompt, max_new=MAX_NEW,
+                             level="q16_16")])
+    isolation_ok = next(iter(iso.values())).tokens == got[0]
+    # one gather of the whole pool (4 lanes x 1024 rows x 30 layers),
+    # as every decode pass, draft and verify pays it
+    tables = srv.cache_ops.device_tables()
+    view_bytes = sum(v.numel() * v.element_size() for node in
+                     srv.cache_ops.device_view(srv.pool, tables).values() for v in node.values())
+    view_ms = time_ms(lambda: srv.cache_ops.device_view(srv.pool, tables), iters=5, warmup=2)
+    ttft = {}
+    long = next(p for p in prompts if len(p) == 480)
+    for lv in ("q16_16", "f32"):
+        sync()
+        t1 = time.perf_counter()
+        srv.serve([Request(rid=srv.next_rid(), prompt=long, max_new=1, level=lv)])
+        sync()
+        ttft[f"{lv}@480"] = (time.perf_counter() - t1) * 1e3
+    n_tokens = sum(f.n_generated for f in fins.values())
+    rec = {"phase": "paged", "model": cfg.name, "n_slots": 4, "max_len": 1024, "page_size": PAGE,
+           "prefill_chunk": PAGED_CHUNK, "n_pages": srv.cache_ops.report()["groups"],
+           "requests": len(reqs), "generated_tokens": n_tokens, "serve_wall_s": wall,
+           "tokens_per_s": n_tokens / wall, "contiguous_tokens_per_s": contig["tokens_per_s"],
+           "tokens_agreeing_with_contiguous": agree, "prefill_chunks": chunks,
+           "launches": launches, "q16_16_passes": q16_passes, "pool_drained": drained,
+           "all_logits_ok": logits_ok, "isolation_ok": isolation_ok,
+           "device_view_ms": view_ms, "device_view_gb": view_bytes / 1e9,
+           "device_view_bound_ms": 2 * view_bytes / HBM_BYTES_S * 1e3,
+           "ttft_ms": ttft, "contiguous_ttft_ms": contig["ttft_ms"], "setup_s": setup_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    del srv, fins, iso
+    gc.collect()  # the server's hooks hold it in a reference cycle
+    torch.cuda.empty_cache()
+    for r, g in zip(reqs, got):
+        require(len(g) == len(r.prompt) + MAX_NEW, f"paged: request {r.rid} gave {len(g)} tokens")
+    require(logits_ok, "paged: logits not all finite")
+    require(drained, "paged: the pool did not drain after the run")
+    require(isolation_ok, "paged: the q16_16 request served alone differs from its batch tokens")
+    for name in ("qmatmul", "fused_swiglu", "cordic_sincos"):
+        require(launches[name] > 0, f"paged: kernel {name} was not launched")
+    require(launches["flash_attention"] == 0, "paged: chunked prefill launched K4")
+    want_k3 = sum(-(-len(p) // PAGED_CHUNK) for p, lv in zip(prompts, LEVELS) if lv == "q16_16")
+    require(launches["cordic_sincos"] == want_k3 + q16_passes,
+            f"paged: K3 launched {launches['cordic_sincos']} times, want {want_k3 + q16_passes}")
+    paths["paged"] = launches
+
+    # -- speculative requests at both draft rungs ---------------------------
+    spec_prompts = [next(p for p in prompts if len(p) == n) for n in SPEC_LENS]
+    vanilla, vanilla_wall, spec_recs = None, None, {}
+    for rung in ("q8_8", "q16_16"):
+        torch.cuda.reset_peak_memory_stats()
+        srv = ContinuousBatchingServer(cfg, params, ServingConfig(
+            **paged, prefill_chunk=PAGED_CHUNK,
+            speculative=SpeculativeConfig(k=SPEC_K, draft_level=rung, max_len=1024)), device=dev)
+        srv.serve([Request(rid=srv.next_rid(), prompt=prompts[0][:8], max_new=SPEC_K + 2,
+                           speculative=True)])
+        if vanilla is None:
+            sync()
+            t0 = time.perf_counter()
+            v = srv.serve([Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, level="f32")
+                           for p in spec_prompts])
+            sync()
+            vanilla_wall = time.perf_counter() - t0
+            vanilla = [f.tokens for f in sorted(v.values(), key=lambda f: f.rid)]
+        passes = _count_drafts(srv)
+        stats0 = srv.stats
+        sync()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        fins = srv.serve([Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, speculative=True)
+                          for p in spec_prompts])
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        got = [f.tokens for f in sorted(fins.values(), key=lambda f: f.rid)]
+        st = {k: srv.stats[k] - stats0[k] for k in ("spec_rounds", "spec_drafted",
+                                                    "spec_accepted", "decode_steps")}
+        ties = [_near_tie(cfg, params, p, w, g) for p, w, g in zip(spec_prompts, vanilla, got)]
+        names = tuple(lv for lv, _ in serve_mod.SPEC_DRAFT_LEVELS)
+        spec_recs[rung] = rec = {
+            "phase": "speculative", "model": cfg.name, "draft_level": rung, "k": SPEC_K,
+            "prompt_lens": list(SPEC_LENS), "max_new": MAX_NEW, **st,
+            "acceptance_rate": st["spec_accepted"] / max(st["spec_drafted"], 1),
+            "draft_passes": passes[0], "serve_wall_s": wall,
+            "tokens_per_s": 4 * MAX_NEW / wall, "vanilla_f32_tokens_per_s": 4 * MAX_NEW / vanilla_wall,
+            "draft_rungs_end": [names[i] for i in srv.draft_arbiter.idx],
+            "draft_switches": [list(s) for s in srv.draft_arbiter.switches],
+            "launches": launches,
+            "launches_per_draft_pass": {k: v / max(passes[0], 1) for k, v in launches.items() if v},
+            "vs_vanilla": ties, "pool_drained": _pool_drained(srv),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": nvidia_smi()}
+        emit(rec)
+        del srv, fins
+        gc.collect()
+        torch.cuda.empty_cache()
+        for t in ties:
+            require(t["equal"] or t["margin"] < NEAR_TIE,
+                    f"speculative {rung}: differs from vanilla f32 beyond a near tie: {t}")
+        require(rec["pool_drained"], f"speculative {rung}: the pool did not drain")
+        require(st["spec_rounds"] > 0 and passes[0] > 0, f"speculative {rung}: no round ran")
+        per = rec["launches_per_draft_pass"]
+        require(per.get("cordic_sincos") == 1 and per.get("qmatmul", 0) > 0
+                and per.get("fused_swiglu", 0) > 0 and launches["flash_attention"] == 0,
+                f"speculative {rung}: launches per draft pass {per}")
+        paths[f"spec_draft_{rung}"] = launches
+
+    # -- prefix sharing against the same chunk grid without it ---------------
+    rng = np.random.default_rng(seed + 1)
+    prefix = rng.integers(0, cfg.vocab, PREFIX_LEN).tolist()
+    shared = []
+    for i in range(4):
+        tail = rng.integers(0, cfg.vocab, TAIL_LEN).tolist()
+        tail[0] = (prefix[-1] + 1 + i) % cfg.vocab   # the tails differ from their first token
+        shared.append(prefix + tail)
+    runs = {}
+    for sharing in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        srv = ContinuousBatchingServer(cfg, params, ServingConfig(
+            **paged, prefill_chunk=PAGE, prefix_sharing=sharing), device=dev)
+        _reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        fins = srv.serve([Request(rid=i, prompt=p, max_new=PREFIX_NEW, level="f32")
+                          for i, p in enumerate(shared)])
+        sync()
+        snap = srv.metrics_snapshot()
+        runs[sharing] = {"tokens": [fins[i].tokens for i in range(4)],
+                         "wall_s": time.perf_counter() - t0, **srv.stats,
+                         "cow_copies_total": snap["cow_copies_total"],
+                         "prefix_entries": snap["prefix_entries"],
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        launches = _launch_counts()
+        del srv, fins
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    rec = {"phase": "prefix_sharing", "model": cfg.name, "prefix_len": PREFIX_LEN,
+           "tail_len": TAIL_LEN, "max_new": PREFIX_NEW, "page_size": PAGE, "prefill_chunk": PAGE,
+           "tokens_equal": on["tokens"] == off["tokens"],
+           **{f"{k}_on": on[k] for k in on if k != "tokens"},
+           **{f"{k}_off": off[k] for k in off if k != "tokens"}, "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    require(rec["tokens_equal"], "prefix sharing: tokens differ from the run without it")
+    require(on["prefix_hits"] == 3 and on["prefix_tokens_reused"] == 3 * PREFIX_LEN,
+            f"prefix sharing: {on['prefix_hits']} hits, {on['prefix_tokens_reused']} tokens reused")
+    paths["prefix_sharing"] = launches
+    return paths
+
+
+def gemma2_spec_phase(cfg, params, prompt, want):
+    """gemma2-2b: the 4500-token prompt speculatively (k=4, q16_16 drafts)
+    on the contiguous pool (the draft's rollback across the window wrap)
+    and on the paged pool; both against the f32 tokens of the mixed run."""
+    import torch
+
+    from repro_torch.runtime import ContinuousBatchingServer, Request, ServingConfig
+    from repro_torch.runtime import SpeculativeConfig
+
+    dev, sync = torch.device(DEVICE), torch.cuda.synchronize
+    paths = {}
+    for cache in ("contiguous", "paged"):
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(cache="paged", page_size=PAGE, prefill_chunk=G2_CHUNK) if cache == "paged" else {}
+        srv = ContinuousBatchingServer(cfg, params, ServingConfig(
+            n_slots=4, max_len=8192, **kw,
+            speculative=SpeculativeConfig(k=SPEC_K, draft_level="q16_16", max_len=8192)),
+            device=dev)
+        passes = _count_drafts(srv)
+        _reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        fins = srv.serve([Request(rid=0, prompt=prompt, max_new=MAX_NEW, speculative=True)])
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        tie = _near_tie(cfg, params, prompt, want, fins[0].tokens)
+        rec = {"phase": "speculative", "model": cfg.name, "cache": cache, "prompt_len": len(prompt),
+               "k": SPEC_K, "draft_level": "q16_16", "max_new": MAX_NEW, **srv.stats,
+               "draft_passes": passes[0], "serve_wall_s": wall, "vs_vanilla": tie,
+               "launches": launches,
+               "launches_per_draft_pass": {k: v / max(passes[0], 1) for k, v in launches.items()
+                                           if v and k != "flash_attention"},
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": nvidia_smi()}
+        if cache == "paged":
+            rec["prefill_chunk"] = G2_CHUNK
+            rec["pool_drained"] = _pool_drained(srv)
+        emit(rec)
+        del srv, fins
+        gc.collect()
+        torch.cuda.empty_cache()
+        require(tie["equal"] or tie["margin"] < NEAR_TIE,
+                f"gemma2 speculative ({cache}): differs from f32 beyond a near tie: {tie}")
+        require(rec["spec_rounds"] > 0 and rec.get("pool_drained", True),
+                f"gemma2 speculative ({cache}): {rec['spec_rounds']} rounds, pool drained "
+                f"{rec.get('pool_drained')}")
+        per = rec["launches_per_draft_pass"]
+        require(per.get("universal_unary") == 1 and per.get("cordic_sincos") == 1
+                and per.get("qmatmul", 0) > 0 and per.get("fused_swiglu", 0) > 0,
+                f"gemma2 speculative ({cache}): launches per draft pass {per}")
+        # K4 only in the contiguous pool's f32 prefill_step, once a layer
+        want_k4 = cfg.n_layers if cache == "contiguous" else 0
+        require(launches["flash_attention"] == want_k4,
+                f"gemma2 speculative ({cache}): K4 launched {launches['flash_attention']} "
+                f"times, want {want_k4}")
+        paths["spec_draft" if cache == "contiguous" else "spec_draft_paged"] = launches
     return paths
 
 
@@ -1768,10 +2145,9 @@ def main(argv=None) -> int:
         for model, phase in (("deepseek_7b", deepseek_phase), ("gemma2_2b", gemma2_phase)):
             gc.collect()
             torch.cuda.empty_cache()
-            paths = phase(args.seed)
-            by_path[model] = paths["serve"]
-            if "segment_fast" in paths:
-                by_path[f"{model}_segment_fast"] = paths["segment_fast"]
+            paths = phase(args.seed, strict=root == ROOT)
+            for key, counts in paths.items():
+                by_path[model if key == "serve" else f"{model}_{key}"] = counts
             emit({"phase": f"{model} done", "elapsed_s": time.perf_counter() - t_start})
 
     kernels = []

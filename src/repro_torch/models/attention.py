@@ -168,19 +168,17 @@ def _segment_attention(cache: dict, q, k, v, positions, layer: LayerSpec, cfg: M
         for name in ("k", "v", "pos"):
             seg_aux[name] = cache[name][lanes[:, None], slots]
 
-    def store(s_i):
-        for name, new in (("k", k[:, s_i]), ("v", v[:, s_i]), ("pos", positions[:, s_i])):
-            buf = cache[name]
-            buf[lanes, slots[:, s_i]] = new.to(buf.dtype)
-
     if layer.window is None:
-        for s_i in range(S):
-            store(s_i)
+        # the S slots are distinct (S <= L consecutive positions), so one
+        # scatter writes what S single-row stores would
+        for name, new in (("k", k), ("v", v), ("pos", positions)):
+            cache[name][lanes[:, None], slots] = new.to(cache[name].dtype)
         return decode_attention_multi(q, cache["k"], cache["v"], cache["pos"],
                                       q_positions=positions, cap=cfg.attn_softcap)
     outs = []
     for s_i in range(S):
-        store(s_i)
+        for name, new in (("k", k[:, s_i]), ("v", v[:, s_i]), ("pos", positions[:, s_i])):
+            cache[name][lanes, slots[:, s_i]] = new.to(cache[name].dtype)
         outs.append(decode_attention(q[:, s_i:s_i + 1], cache["k"], cache["v"], cache["pos"],
                                      q_position=positions[:, s_i], window=layer.window,
                                      cap=cfg.attn_softcap))

@@ -6,8 +6,7 @@ Reference: ``src/repro/models/model.py`` — ``param_specs``,
 ``decode_step`` (with ``lane_mask``), and the segment steps
 ``segment_step`` / ``commit_segment`` that the paged server's chunked
 prefill and the speculative verify run on.  Training (``train_loss``)
-waits for ROADMAP.md queue 1 item 12; the paged server and speculative
-decoding themselves for item 9.
+waits for ROADMAP.md queue 1 item 12.
 
 Parameters and caches keep the reference's trees: nested dicts whose
 ``periods`` leaves are stacked ``(n_periods, ...)``; the forward walks
@@ -57,14 +56,14 @@ def _stack_spec(s: Spec, n: int) -> Spec:
     return Spec((n,) + s.shape, ("layer",) + s.axes, s.dtype, s.init, s.scale)
 
 
-def _map(fn, tree):
+def tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    stacked = _map(lambda s: _stack_spec(s, cfg.n_periods), period_specs(cfg))
+    stacked = tree_map(lambda s: _stack_spec(s, cfg.n_periods), period_specs(cfg))
     out = {
         "embed": Spec((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
         "periods": stacked,
@@ -87,7 +86,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_from_specs(param_specs(cfg), gen, dev)
-    return _map(lambda x: x.to(dtype), params)
+    return tree_map(lambda x: x.to(dtype), params)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
@@ -96,7 +95,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     position sentinel -1."""
     dev = resolve_device(device)
     one = init_period_cache(cfg, batch, max_len, dtype, dev)
-    return _map(lambda x: x[None].repeat((cfg.n_periods,) + (1,) * x.ndim), one)
+    return tree_map(lambda x: x[None].repeat((cfg.n_periods,) + (1,) * x.ndim), one)
 
 
 def cache_layout(cfg: ModelConfig, max_len: int):
@@ -130,7 +129,7 @@ def truncate_cache_slot(pool: dict, cfg: ModelConfig, slot: int, keep_pos,
             raise NotImplementedError(f"{spec.kind} caches: ROADMAP.md queue 1 item 10")
         cache = pool[f"pos{i}"]
         for p in range(cache["pos"].shape[0]):
-            attn.truncate_attn_cache_slot(_map(lambda c: c[p], cache), slot, keep_pos)
+            attn.truncate_attn_cache_slot(tree_map(lambda c: c[p], cache), slot, keep_pos)
     return pool
 
 
@@ -162,7 +161,7 @@ def write_cache_slot(pool: dict, single: dict, slot: int) -> dict:
 
 def layer_params(params: dict, i: int) -> dict:
     """Period ``i``'s parameters: views into the stacked leaves."""
-    return _map(lambda x: x[i], params["periods"])
+    return tree_map(lambda x: x[i], params["periods"])
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -195,7 +194,7 @@ def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)
     per_period = []
     for i in range(cfg.n_periods):
-        cache_i = None if caches is None else _map(lambda c: c[i], caches)
+        cache_i = None if caches is None else tree_map(lambda c: c[i], caches)
         aux_i = {} if seg_aux is not None else None
         x, _ = period_forward(layer_params(params, i), x, cfg, positions=positions, mode=mode,
                               caches=cache_i, prefill=prefill, lane_mask=lane_mask, rope=rope,
@@ -224,14 +223,18 @@ def prefill_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ModelCon
 
 def decode_step(params: dict, token: torch.Tensor, position: torch.Tensor, caches: dict,
                 cfg: ModelConfig, mode: str = "precise",
-                lane_mask: Optional[torch.Tensor] = None):
+                lane_mask: Optional[torch.Tensor] = None, pristine_view: bool = True):
     """token (B,1) at ``position`` (B,) -> (logits (B,V) f32, caches).
 
     ``lane_mask`` (B,) zeroes non-member lanes at the embedding and
     leaves their cache rows untouched, computing them as the
     reference's pristine masked view would: the FAST rung's per-tensor
     activation exponents then cannot couple a lane to the others, so a
-    slot's output is what it would be served alone.
+    slot's output is what it would be served alone.  With
+    ``pristine_view=False`` the mask only zeroes the input, as the
+    reference's ``decode_step`` does on an unmasked cache: non-member
+    lanes attend to their own rows and write theirs like members (the
+    speculative draft, whose writes are rolled back or dropped).
     """
     B = token.shape[0]
     positions = position.reshape(B, 1).to(torch.int32)
@@ -240,7 +243,8 @@ def decode_step(params: dict, token: torch.Tensor, position: torch.Tensor, cache
         x = x.to(torch.float32)
     if lane_mask is not None:
         x = x * lane_mask.to(x.dtype)[:, None, None]
-    x = _layers(params, x, caches, cfg, positions, mode, prefill=False, lane_mask=lane_mask)
+    x = _layers(params, x, caches, cfg, positions, mode, prefill=False,
+                lane_mask=lane_mask if pristine_view else None)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head(params, cfg, x[:, 0], mode), caches
 

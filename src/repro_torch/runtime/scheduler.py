@@ -55,7 +55,7 @@ class Request:
 
     ``speculative``: serve this request through ladder-speculative
     decoding (draft at a cheap rung, verify at f32 — see
-    ROADMAP.md queue 1 item 9 (not ported yet)).  Output is identical to vanilla
+    :mod:`repro_torch.runtime.speculative`).  Output is identical to vanilla
     f32 greedy decode; only throughput changes.  Requires the server to
     be built with a ``speculative`` config.
     """

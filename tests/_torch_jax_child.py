@@ -4,7 +4,7 @@ must be set before JAX starts, hence a process of its own), so every
 bf16 cast of the FAST rung rounds where the source says it does.
 
 Usage: XLA_FLAGS=--xla_allow_excess_precision=false \
-           python tests/_torch_jax_child.py OUT.npz [ARCH [segment]]
+           python tests/_torch_jax_child.py OUT.npz [ARCH [segment|spec|paged]]
 
 ARCH is ``deepseek_7b`` (default; tests/test_torch_model.py) or
 ``gemma2_2b`` (tests/test_torch_gemma2.py).  Writes the smoke model's
@@ -24,10 +24,32 @@ buffers wrap inside it), the same segment with lane 1 masked
 (``{mode}/masked/...``), and ``commit_segment`` of the segment for
 keep_count 1..5 on both lanes (``{mode}/commit{k}/...``) and for
 keep_count 3 with lane 1 inactive (``{mode}/commit_inactive/...``).
+
+With ``spec`` (tests/test_torch_speculative.py) it writes instead
+``vanilla_greedy_reference``'s tokens for the prompts of SPEC_SEEDS
+(``spec/vanilla``, SPEC_MAX_NEW each) and, per draft rung, the
+speculative tokens and per-round trace of ``LadderSpeculativeDecoder``
+(k = SPEC_K) on the prompts of seed 0 (``spec/{rung}/tokens``,
+``spec/{rung}/{drafts,preds,n_commit,active}`` stacked by round).  With
+``paged`` (tests/test_torch_paged_serving.py) it writes the tokens a
+paged ``ContinuousBatchingServer`` gives PAGED_WORKLOAD in one mixed
+batch (``paged/tokens{i}``).  Both use the unquantized parameters
+(``param/...`` without the ``_q`` payloads), which the servers quantize
+themselves.
+
+The ``spec`` and ``paged`` runs are shared by their two test modules:
+:func:`start_shared` starts, once per test session (across xdist
+workers too), every run that a collected module needs, and
+:func:`wait_shared` waits for one of them.  The child writes its file
+whole (a rename) or, when it fails, ``OUT``'s ``.err`` beside it.
 """
 
+import atexit
 import os
+import subprocess
 import sys
+import time
+import traceback
 
 import numpy as np
 
@@ -54,6 +76,26 @@ DECODE_STEPS = 6
 SEG_PROMPT = np.stack([TOKENS[0], TOKENS[0] + 20]).astype(np.int32)
 SEG_TOKENS = np.array([[12, 13, 14, 15, 16], [32, 33, 34, 35, 36]], np.int32)
 SEG_POSITIONS = np.tile(np.arange(11, 16, dtype=np.int32), (2, 1))
+SPEC_K = 3
+SPEC_MAX_LEN = 64
+SPEC_MAX_NEW = 12
+SPEC_SEEDS = (0, 1)
+#: (prompt, max_new, level) of the paged server's mixed batch (2 slots)
+PAGED_WORKLOAD = (
+    ([1, 2, 3, 4, 5, 6], 6, "f32"),
+    ([9, 8, 7, 6], 6, "q16_16"),
+    ([5, 5, 5, 2, 2, 2, 7, 7, 1], 4, "q16_16"),
+    ([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5], 5, "f32"),
+)
+PAGED_MAX_LEN = 32
+PAGED_PAGE_SIZE = 4
+#: (arch, mode) -> the test module that reads the run
+SHARED_RUNS = {
+    ("deepseek_7b", "paged"): "test_torch_paged_serving.py",
+    ("deepseek_7b", "spec"): "test_torch_speculative.py",
+    ("gemma2_2b", "spec"): "test_torch_speculative.py",
+}
+_STARTED = {}
 
 
 def _save(flat, key, leaves):
@@ -92,6 +134,69 @@ def segments(flat, cfg, pa):
         _save_tree(flat, f"{mode}/commit_inactive", merged)
 
 
+def _unrolled_draft(dec, cfg):
+    """``dec._draft`` with its ``lax.scan`` unrolled: the same k jitted
+    ``decode_step`` calls of the scan body, whose cache writes are
+    dropped.  XLA's CPU compile of gemma2's scanned FAST draft inside the
+    rung switch does not finish in minutes; one decode step compiles in
+    seconds."""
+    from repro.models import decode_step
+    from repro.runtime.speculative import SPEC_DRAFT_LEVELS
+
+    steps = [jax.jit(lambda p, t, q, c, m, mode=mode: decode_step(
+        p, t[:, None], q, c, cfg, mode=mode, lane_mask=m)) for _, mode in SPEC_DRAFT_LEVELS]
+
+    def draft(li, params, tok, pos, caches, mask):
+        drafts = []
+        for _ in range(dec.scfg.k):
+            logits, caches = steps[int(li)](params, tok, pos, caches, mask)
+            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            pos = pos + 1
+            drafts.append(tok)
+        return jnp.stack(drafts, axis=1)
+    return draft
+
+
+def speculative(flat, cfg, params):
+    """The ``spec`` records of the module docstring (gemma2_2b drafts
+    through :func:`_unrolled_draft`)."""
+    from repro.runtime.speculative import (
+        LadderSpeculativeDecoder,
+        SpeculativeConfig,
+        vanilla_greedy_reference,
+    )
+    from spec_harness import make_prompts
+
+    prompts = [p for seed in SPEC_SEEDS for p in make_prompts(cfg.vocab, seed)]
+    flat["spec/vanilla"] = np.asarray(
+        vanilla_greedy_reference(cfg, params, prompts, SPEC_MAX_NEW, SPEC_MAX_LEN), np.int32)
+    dec = LadderSpeculativeDecoder(cfg, params, SpeculativeConfig(
+        k=SPEC_K, max_len=SPEC_MAX_LEN, collect_trace=True))
+    if any(spec.window for spec in cfg.period):
+        dec._draft = _unrolled_draft(dec, cfg)
+    for rung in ("q8_8", "q16_16"):
+        start = len(dec.trace)
+        toks = dec.generate(make_prompts(cfg.vocab, SPEC_SEEDS[0]), max_new=SPEC_MAX_NEW,
+                            draft_level=rung)
+        flat[f"spec/{rung}/tokens"] = np.asarray(toks, np.int32)
+        for key in ("drafts", "preds", "n_commit", "active"):
+            flat[f"spec/{rung}/{key}"] = np.stack([r[key] for r in dec.trace[start:]])
+
+
+def paged(flat, cfg, params):
+    """The ``paged`` records of the module docstring."""
+    from repro.runtime.config import ServingConfig
+    from repro.runtime.scheduler import Request
+    from repro.runtime.serve import ContinuousBatchingServer
+
+    srv = ContinuousBatchingServer(cfg, params, ServingConfig(
+        n_slots=2, max_len=PAGED_MAX_LEN, cache="paged", page_size=PAGED_PAGE_SIZE))
+    fins = srv.serve([Request(rid=i, prompt=list(p), max_new=n, level=lv)
+                      for i, (p, n, lv) in enumerate(PAGED_WORKLOAD)])
+    for i, fin in fins.items():
+        flat[f"paged/tokens{i}"] = np.asarray(fin.tokens, np.int32)
+
+
 def main(out, arch="deepseek_7b", what=""):
     cfg = smoke(arch)
     params = init_params(cfg, jax.random.PRNGKey(3))
@@ -99,9 +204,10 @@ def main(out, arch="deepseek_7b", what=""):
     flat = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(pa)[0]:
         flat["param/" + "/".join(k.key for k in path)] = np.asarray(leaf)
-    if what == "segment":
-        segments(flat, cfg, pa)
-        np.savez(out, **flat)
+    if what in ("segment", "spec", "paged"):
+        {"segment": lambda: segments(flat, cfg, pa), "spec": lambda: speculative(flat, cfg, params),
+         "paged": lambda: paged(flat, cfg, params)}[what]()
+        _write(out, flat)
         return
     for mode in ("exact", "fast"):
         prefill = jax.jit(lambda p, t, c: prefill_step(p, t, c, cfg, mode=mode))
@@ -127,8 +233,75 @@ def main(out, arch="deepseek_7b", what=""):
             _save(flat, f"{mode}/c2/{pos}", c[pos])
         flat[f"{mode}/logits_decode"] = np.stack(logits)
         flat[f"{mode}/tokens"] = np.asarray(tokens, np.int32)
-    np.savez(out, **flat)
+    _write(out, flat)
+
+
+def _write(out, flat):
+    with open(out + ".part", "wb") as f:
+        np.savez(f, **flat)
+    os.replace(out + ".part", out)
+
+
+# ---------------------------------------------------------------------------
+# the parent side: the runs shared by the spec and paged test modules
+# ---------------------------------------------------------------------------
+
+
+def start_shared(request, tmp_path_factory):
+    """Start each run of SHARED_RUNS whose module this session collected
+    and no process of the session has claimed (a claim file made with
+    O_EXCL); returns the directory the runs write to."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # the session's, shared by its workers
+    out_dir = root / "jax_shared"
+    out_dir.mkdir(exist_ok=True)
+    collected = {item.path.name for item in request.session.items}
+    env = dict(os.environ, XLA_FLAGS="--xla_allow_excess_precision=false", JAX_PLATFORMS="cpu")
+    for (arch, mode), module in SHARED_RUNS.items():
+        out = out_dir / f"{arch}-{mode}.npz"
+        if module not in collected:
+            continue
+        try:
+            os.close(os.open(out_dir / f"{arch}-{mode}.claim", os.O_CREAT | os.O_EXCL))
+        except FileExistsError:
+            continue
+        _STARTED[out] = subprocess.Popen([sys.executable, os.path.abspath(__file__), str(out),
+                                          arch, mode], env=env)
+    return out_dir
+
+
+def wait_shared(out_dir, arch, mode, timeout=600):
+    """The path of one shared run's file once it is written; raises if
+    the run failed or did not finish in ``timeout`` seconds."""
+    out = out_dir / f"{arch}-{mode}.npz"
+    err = out.with_suffix(".err")
+    deadline = time.monotonic() + timeout
+    while not out.exists():
+        proc = _STARTED.get(out)
+        if err.exists() or (proc is not None and proc.poll() not in (None, 0)):
+            raise RuntimeError(f"JAX run {arch} {mode} failed:\n"
+                               + (err.read_text() if err.exists() else ""))
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"JAX run {arch} {mode} did not finish in {timeout} s")
+        time.sleep(0.1)
+    return out
+
+
+@atexit.register
+def _finish_shared():
+    # another worker may still wait for a run this process started
+    for proc in _STARTED.values():
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    try:
+        main(*sys.argv[1:])
+    except BaseException:
+        with open(os.path.splitext(sys.argv[1])[0] + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise

@@ -513,3 +513,98 @@ def test_cuda_engine_matmul_launches_the_kernel_once(cuda):
     got = eng.call("matmul", a, b)
     assert qmatmul_deferred.launches == before + 1
     assert torch.equal(got, qmatmul_deferred_plain(a, b))
+
+
+# ---------------------------------------------------------------------------
+# the paged pool and the speculative draft's rollback on CUDA tensors
+# ---------------------------------------------------------------------------
+
+
+def _paged_script(device):
+    """One scripted sequence on a deepseek_7b smoke pool with sharing on:
+    a slot written with random rows, a prefix shared into another slot
+    and copied on write, one row committed for a member lane and one for
+    a masked lane.  Returns the pool and its state (sink page included)."""
+    from repro_torch.configs import smoke
+    from repro_torch.models import init_caches
+    from repro_torch.runtime import PagedCachePool
+
+    cfg = smoke("deepseek_7b")
+    pool = PagedCachePool(cfg, 2, 32, 4, prefix_sharing=True, device=device)
+    state = pool.alloc()
+    g = torch.Generator().manual_seed(0)
+    single = {k: {n: (torch.randint(0, 32, v.shape, generator=g, dtype=v.dtype) if n == "pos"
+                      else torch.randn(v.shape, generator=g)).to(device)
+                  for n, v in node.items()}
+              for k, node in init_caches(cfg, 1, 32, device="cpu").items()}
+    pool.write(state, single, 0)
+    grp = pool.groups["L32"]
+    pid = int(grp["table"][0, 1])
+    grp["alloc"].incref(pid)
+    grp["table"][1, 1] = pid
+    pool._dirty = True
+    pool.ensure_rows(state, 1, 4, 7)          # copy-on-write of the shared page
+    pool.ensure_rows(state, 1, 8, 8)
+    tables = pool.device_tables()
+    view = pool.device_view(state, tables)
+    poked = {k: {n: v + 3 for n, v in node.items()} for k, node in view.items()}
+    pos = torch.tensor([8, 8], dtype=torch.int32, device=device)
+    pool.commit_rows(state, tables, poked, pos, torch.tensor([False, True], device=device),
+                     n_rows=2)
+    return pool, state, single, poked
+
+
+@pytest.mark.cuda
+def test_cuda_paged_commit_cow_and_sink_match_cpu(cuda):
+    """The same script on CUDA and CPU tensors gives the same pages bit for
+    bit; the zero page stays pristine, the masked lane's rows landed on
+    the sink page only, and the copied page carries the shared bits."""
+    pool, state, single, poked = _paged_script(cuda)
+    _, ref, _, _ = _paged_script("cpu")
+    for key, node in state["pages"].items():
+        for name, arr in node.items():
+            assert torch.equal(arr[:, :-1].cpu(), ref["pages"][key][name][:, :-1]), (key, name)
+            assert bool((arr[:, 0] == (-1 if name == "pos" else 0)).all())
+    sink = state["pages"]["pos0"]["k"][:, pool.sink("L32")]
+    assert torch.equal(sink[:, :2], poked["pos0"]["k"][:, 0, 8:10])  # the masked lane's rows
+    assert torch.equal(pool.read(state, 0)["pos0"]["k"], single["pos0"]["k"])
+    read = pool.read(state, 1)
+    assert torch.equal(read["pos0"]["k"][:, 0, 4:8], single["pos0"]["k"][:, 0, 4:8])
+    assert torch.equal(read["pos0"]["k"][:, 0, 8:10], poked["pos0"]["k"][:, 1, 8:10])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+def test_cuda_speculative_serving_equals_vanilla_and_draft_restores_pool(cuda, cache):
+    """gemma2_2b smoke on the card (drafts through K1, K2, K3 and K5): the
+    contiguous draft leaves the pool bit for bit as it found it, and
+    speculative serving gives vanilla f32 serving's tokens on both pools."""
+    from repro_torch.configs import smoke
+    from repro_torch.models import init_caches, init_params, prefill_step
+    from repro_torch.runtime import ContinuousBatchingServer, ServingConfig, SpeculativeConfig
+
+    cfg = smoke("gemma2_2b")
+    params = init_params(cfg, seed=5, device=cuda)
+    kw = dict(cache="paged", page_size=4) if cache == "paged" else {}
+    spec = SpeculativeConfig(k=3, draft_level="q8_8", max_len=64)
+    srv = ContinuousBatchingServer(cfg, params, ServingConfig(n_slots=3, max_len=64,
+                                                              speculative=spec, **kw),
+                                   device=cuda)
+    prompts = [[(5 * i + j) % 200 + 1 for j in range(6 + 4 * i)] for i in range(5)]
+    got = srv.generate(prompts, max_new=12, speculative=True)
+    want = ContinuousBatchingServer(cfg, params, ServingConfig(n_slots=3, max_len=64, **kw),
+                                    device=cuda).generate(prompts, max_new=12, level="f32")
+    assert got == want and srv.stats["spec_rounds"] > 0
+    if cache == "contiguous":
+        pool = init_caches(cfg, 2, 64, device=cuda)
+        toks = torch.tensor(prompts[:2][0][:6], dtype=torch.int32, device=cuda)
+        for i in range(2):
+            view = {k: {n: v[:, i:i + 1] for n, v in node.items()} for k, node in pool.items()}
+            prefill_step(srv.params, toks[None] + i, view, cfg, mode="exact")
+        before = {k: {n: v.clone() for n, v in node.items()} for k, node in pool.items()}
+        tok = torch.tensor([3, 4], dtype=torch.int32, device=cuda)
+        pos = torch.tensor([6, 6], dtype=torch.int32, device=cuda)
+        srv._spec_draft[0](srv.params, tok, pos, pool, torch.tensor([True, False], device=cuda))
+        for k, node in pool.items():
+            for n, v in node.items():
+                assert torch.equal(v, before[k][n]), (k, n)

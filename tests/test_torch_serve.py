@@ -136,13 +136,35 @@ def test_eos_mode_and_batched_server(model):
     assert outs == cont  # same-length prompts: static == continuous
 
 
-def test_serving_config_rejects_unported_paths():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ServingConfig(cache="paged")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ServingConfig(speculative=object())
+def test_serving_config_validation():
+    """Mirrors tests/test_paged_serving.py::test_serving_config_validation:
+    the paged knobs and their checks, as the reference validates them."""
+    with pytest.raises(ValueError, match="cache"):
+        ServingConfig(cache="mmap")
+    with pytest.raises(ValueError, match="divide max_len"):
+        ServingConfig(cache="paged", max_len=30, page_size=4)
+    with pytest.raises(ValueError, match="requires cache='paged'"):
+        ServingConfig(prefill_chunk=8)
+    with pytest.raises(ValueError, match="requires cache='paged'"):
+        ServingConfig(prefix_sharing=True)
+    with pytest.raises(ValueError, match="n_pages"):
+        ServingConfig(cache="paged", max_len=32, page_size=4, n_pages=3)
+    with pytest.raises(ValueError, match="prefill_chunk == page_size"):
+        ServingConfig(cache="paged", max_len=32, page_size=4, prefill_chunk=8,
+                      prefix_sharing=True)
+    with pytest.raises(ValueError, match="divide max_len"):
+        ServingConfig(cache="paged", max_len=32, page_size=4, prefill_chunk=5)
     with pytest.raises(ValueError):
         ServingConfig(n_slots=0)
+    assert ServingConfig(cache="paged", page_size=8).resolved_chunk == 8
+    assert ServingConfig(cache="paged", max_len=32, page_size=4, n_pages=9).n_pages == 9
+    assert ServingConfig().resolved_chunk is None
+    # every case above raises on the reference's config too
+    from repro.runtime.config import ServingConfig as JConfig
+    for kw in ({"cache": "mmap"}, {"prefill_chunk": 8}, {"prefix_sharing": True},
+               {"cache": "paged", "max_len": 32, "page_size": 4, "n_pages": 3}):
+        with pytest.raises(ValueError):
+            JConfig(**kw)
 
 
 # ---------------------------------------------------------------------------
