@@ -46,7 +46,15 @@ Phases, each printing JSON lines:
    [-1, 1), tile_k 32), on every M, K, N in (1, 17, 33, 1000) with tile_k
    in (1, 7, 32, 40, K), both roundings, saturating and wrapping, and on
    operands near +-32767.0 whose tiles saturate (library: the f32
-   ``torch.matmul`` of the same shape, not the same function);
+   ``torch.matmul`` of the same shape, not the same function); from
+   slice 9 also K1 and K2 at command-r-35b's widths (K2 K=8192 F=22528,
+   K1 K=22528 N=8192; M = 4 and 480), K4 at head_dim 64 (24 heads over 8,
+   S = 480 and 1000, f32 and bf16), and the grouped entries of the MoE
+   experts, ``fused_swiglu_grouped`` and ``qmatmul_grouped``, bit for bit
+   (out, and K2's gate and sigmoid parts) at granite-moe-3b-a800m's and
+   mixtral-8x22b's prefill and decode shapes (GROUPED_K2 / GROUPED_K1)
+   and at tile edges with every K1 epilogue, timed beside their bounds
+   and a per-expert loop of ``torch._int_mm`` (library);
 3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid sin
    cos on CUDA tensors of 2**24 elements at ``q16_16``, at ``f32`` and
    under ``PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24",
@@ -112,7 +120,26 @@ Phases, each printing JSON lines:
    (k = 4, q16_16 drafts) on the contiguous pool (the draft's rollback
    across the window wrap) and on the paged pool (chunk 512): both give
    the mixed run's f32 tokens by the near-tie rule, one K3 and one K5
-   per draft pass.
+   per draft pass;
+6. granite-moe-3b-a800m at its published width and depth (32 layers, 40
+   experts top-8; slice 9): phase 4's mixed workload and TTFT(480) on the
+   contiguous pool, with the MoE gates — every FAST pass launches the
+   grouped K2 and K1 entries exactly ``n_layers`` times each and the dense
+   K2 never, K4 ``n_layers`` times a contiguous prefill, the grouped
+   entries' plain versions never run; then the int8 KV cache
+   (``init_caches(quantized=True)``) against the f32 cache on a 480-token
+   prefill and 16 teacher-forced decodes at both rungs (the largest
+   logit difference against the logit scale, each cache's bytes); then
+   4b's paged workload and speculative requests at ``q8_8`` and
+   ``q16_16`` drafts (the grouped entries ``n_layers`` times a draft
+   pass);
+7. mixtral-8x22b at full width (d_model 6144, 8 experts of d_ff 16384,
+   top-2, window 4096) and CUT_LAYERS of its 56 layers: the mixed
+   workload plus one 4500-token prompt per rung on an 8192-token pool
+   (a prompt crosses the window with MoE behind it), with the MoE gates;
+8. command-r-35b at full width (d_model 8192, d_ff 22528, the 256000 x
+   8192 tied embedding) and CUT_LAYERS of its 40 layers: six requests at
+   both rungs on K1-K4.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -533,6 +560,7 @@ def check_kernels(gen, strict: bool):
         flash_attention_plain,
         p_rounding_case,
     )
+    from repro_torch.kernels import fused_mlp as kfm
     from repro_torch.kernels.fused_mlp import fused_swiglu, fused_swiglu_plain
     from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
 
@@ -629,6 +657,40 @@ def check_kernels(gen, strict: bool):
         emit({"phase": "kernels", "kernel": "fused_swiglu", **rec})
         keep("fused_swiglu", rec)
 
+    # command-r-35b's widths (slice 9), the widest K1 / K2 run: K2 at K=8192
+    # F=22528 and K1 (w_down) at K=22528 N=8192, a decode tick and a prefill
+    for m in (4, CR_PROMPT):
+        x, wg, wu = i8(m, 8192), i8(8192, 22528), i8(8192, 22528)
+        ea, eg, eu = i32(-8, -4, 1), i32(-12, -6, 22528), i32(-12, -6, 22528)
+        out, gate, sig = fused_swiglu(x, wg, wu, ea, eg, eu, return_parts=True)
+        want = fused_swiglu_plain(x, wg, wu, ea, eg, eu, return_parts=True)
+        require(all(torch.equal(a, b) for a, b in zip((out, gate, sig), want)),
+                f"fused_swiglu M={m} K=8192 F=22528 (command-r) differs from its plain version")
+        rec = {"case": f"M={m} K=8192 F=22528 (command-r)", "bit_exact": True,
+               "ms": time_ms(lambda: fused_swiglu(x, wg, wu, ea, eg, eu))}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(m * 8192 + 2 * 8192 * 22528 + 8 * 22528 + 4
+                                                    + 4 * m * 22528, 4.0 * m * 8192 * 22528,
+                                                    "int8")
+        emit({"phase": "kernels", "kernel": "fused_swiglu", **rec})
+        del x, wg, wu
+        a, b = i8(m, 22528), i8(22528, 8192)
+        ea, eb = i32(-12, -4, 1), i32(-12, -4, 8192)
+        require(torch.equal(qmatmul(a, b, ea, eb), qmatmul_plain(a, b, ea, eb)),
+                f"qmatmul M={m} K=22528 N=8192 (command-r) differs from its plain version")
+        rec = {"case": f"M={m} K=22528 N=8192 (command-r)", "bit_exact": True,
+               "ms": time_ms(lambda: qmatmul(a, b, ea, eb))}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(m * 22528 + 22528 * 8192 + 4 * 8192 + 4
+                                                    + 4 * m * 8192, 2.0 * m * 8192 * 22528,
+                                                    "int8")
+        emit({"phase": "kernels", "kernel": "qmatmul", **rec})
+        del a, b
+
+    # the grouped K1 / K2 entries (slice 9): the MoE experts --------------
+    if hasattr(kfm, "fused_swiglu_grouped"):
+        check_grouped(records, keep, i8, i32)
+    else:
+        require(not strict, "the grouped K1 / K2 entries are missing")
+
     # K3 -------------------------------------------------------------------
     # deepseek-7b RoPE (128 wide: 64 frequencies) and gemma2-2b's (256: 128)
     edges = torch.tensor([0, 1, -1, 2**31 - 1, -2**31, 2**31 - 205887, -2**31 + 205887,
@@ -722,6 +784,11 @@ def check_kernels(gen, strict: bool):
     k4_case(480, 32, 32, 128, torch.float32)   # deepseek-7b's TTFT prompt
     for dt in (torch.float32, torch.bfloat16):
         k4_case(300, 32, 8, 128, dt)
+    # granite-moe-3b-a800m prefill (slice 9): head_dim 64, 24 heads over 8
+    # kv heads — the <= 128 class with half of each 128-wide tile masked
+    for s in (480, 1000):
+        for dt in (torch.float32, torch.bfloat16):
+            k4_case(s, 24, 8, 64, dt)
     # gemma2-2b prefill: 8 heads of 256 over 4 kv heads, scores capped at
     # 50, the local layers' window of 4096 crossed by a 4500-token prompt
     for window in (None, 4096):
@@ -893,6 +960,90 @@ def check_kernels(gen, strict: bool):
     return records
 
 
+#: the grouped entries' main-path shapes (E experts, M = B x C rows of
+#: each, K, N): granite-moe-3b-a800m (40 experts, d_model 1536, d_ff 512)
+#: at a 480-token prefill (C = 120) and a 4-lane decode pass (C = 8, the
+#: capacity floor: M = 32), mixtral-8x22b (8 experts, 6144, 16384) at a
+#: 480-token prefill (C = 152) and a decode pass; a single-lane pass (M =
+#: 8) takes the skinny shape
+GROUPED_K2 = ((40, 120, 1536, 512), (40, 32, 1536, 512), (40, 8, 1536, 512),
+              (8, 152, 6144, 16384), (8, 32, 6144, 16384))
+GROUPED_K1 = ((40, 120, 512, 1536), (40, 32, 512, 1536), (40, 8, 512, 1536),
+              (8, 152, 16384, 6144), (8, 32, 16384, 6144))
+#: tile edges: 64- / 128-row tiles, the skinny shape below 9 rows, and a
+#: ragged K, N (the 4-byte copies)
+GROUPED_EDGES = tuple((3, m, k, n) for m in (1, 8, 9, 65, 129) for (k, n) in ((1536, 512),
+                                                                            (100, 52)))
+
+
+def check_grouped(records, keep, i8, i32):
+    """The grouped K1 / K2 entries against their plain versions (bit for
+    bit: out, and K2's gate and sigmoid parts) at GROUPED_K2 / GROUPED_K1
+    and GROUPED_EDGES, timed beside their bounds; ``library_ms`` is a
+    per-expert loop of ``torch._int_mm`` (gate and up for K2) where M > 16."""
+    import torch
+
+    from repro_torch.kernels.fused_mlp import fused_swiglu_grouped, fused_swiglu_plain
+    from repro_torch.kernels.qmatmul import qmatmul_grouped, qmatmul_plain
+
+    for (g, m, k, f) in GROUPED_K2 + GROUPED_EDGES:
+        x, wg, wu = i8(g, m, k), i8(g, k, f), i8(g, k, f)
+        ea, eg, eu = i32(-8, -4, 1), i32(-12, -6, g, f), i32(-12, -6, g, f)
+        got = fused_swiglu_grouped(x, wg, wu, ea, eg, eu, return_parts=True)
+        want = fused_swiglu_plain(x, wg, wu, ea, eg, eu, return_parts=True)
+        torch.cuda.synchronize()
+        exact = [torch.equal(a, b) for a, b in zip(got, want)]
+        err = (got[0].double() - want[0].double()).abs().max().item()
+        case = f"E={g} M={m} K={k} F={f}"
+        require(all(exact), f"fused_swiglu_grouped {case}: out / gate / sigmoid bit-exact "
+                f"{exact} against the plain version (max err {err})")
+        if (g, m, k, f) in GROUPED_EDGES:
+            continue
+        rec = {"case": case, "bit_exact": True, "max_abs_err": err,
+               "ms": time_ms(lambda: fused_swiglu_grouped(x, wg, wu, ea, eg, eu)),
+               "plain_ms": time_ms(lambda: fused_swiglu_plain(x, wg, wu, ea, eg, eu), iters=3)}
+        rec["library_ms"] = (time_ms(lambda: [(torch._int_mm(x[e], wg[e]),
+                                               torch._int_mm(x[e], wu[e])) for e in range(g)])
+                             if m > 16 else None)
+        rec["library"] = "per-expert torch._int_mm, gate and up (no epilogue)"
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            g * (m * k + 2 * k * f + 8 * f + 4 * m * f) + 4, 4.0 * g * m * k * f, "int8")
+        emit({"phase": "kernels", "kernel": "fused_swiglu_grouped", **rec})
+        keep("fused_swiglu_grouped", rec)
+    emit({"phase": "kernels", "kernel": "fused_swiglu_grouped", "case": "tile edges",
+          "shapes": [f"E={g} M={m} K={k} F={f}" for g, m, k, f in GROUPED_EDGES],
+          "bit_exact": True})
+    del x, wg, wu, got, want
+
+    for (g, m, k, n) in GROUPED_K1 + GROUPED_EDGES:
+        a, b = i8(g, m, k), i8(g, k, n)
+        ea = i32(-12, -4, 1)
+        epis = ("float",) if (g, m, k, n) in GROUPED_K1 else ("float", "q16", "int32")
+        for epi in epis:
+            eb = i32(-30, 12, g, n) if epi == "q16" else i32(-12, -4, g, n)
+            got, want = qmatmul_grouped(a, b, ea, eb, epi), qmatmul_plain(a, b, ea, eb, epi)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            case = f"E={g} M={m} K={k} N={n} {epi}"
+            require(torch.equal(got, want), f"qmatmul_grouped {case} differs from its plain "
+                    f"version (max err {err})")
+        if (g, m, k, n) in GROUPED_EDGES:
+            continue
+        rec = {"case": case, "bit_exact": True, "max_abs_err": err,
+               "ms": time_ms(lambda: qmatmul_grouped(a, b, ea, eb)),
+               "plain_ms": time_ms(lambda: qmatmul_plain(a, b, ea, eb), iters=3)}
+        rec["library_ms"] = (time_ms(lambda: [torch._int_mm(a[e], b[e]) for e in range(g)])
+                             if m > 16 else None)
+        rec["library"] = "per-expert torch._int_mm (no epilogue)"
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            g * (m * k + k * n + 4 * n + 4 * m * n) + 4, 2.0 * g * m * n * k, "int8")
+        emit({"phase": "kernels", "kernel": "qmatmul_grouped", **rec})
+        keep("qmatmul_grouped", rec)
+    emit({"phase": "kernels", "kernel": "qmatmul_grouped", "case": "tile edges, every epilogue",
+          "shapes": [f"E={g} M={m} K={k} N={n}" for g, m, k, n in GROUPED_EDGES],
+          "bit_exact": True})
+
+
 def check_float_entries(kc, xf, yf, keep):
     """K6's and K7's float entries (the engine's atan2 at q16_16 and q8_24,
     its div) against their plain versions, the to_fixed -> kernel ->
@@ -1046,8 +1197,10 @@ def check_deferred(gen, keep):
 FLOAT_ENTRIES = ("atan2_f32", "atan2_24_f32", "div_f32")
 #: rows of the kernels line: K1-K7 (K6 and K7 counting the launches of all
 #: their entries), then the float entries, each with its own launches
+#: the grouped K1 / K2 entries of the MoE experts (slice 9)
+GROUPED = ("fused_swiglu_grouped", "qmatmul_grouped")
 KERNELS = ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention", "universal_unary",
-           "atan2_q16", "div_q16") + FLOAT_ENTRIES + ("deferred_matmul",)
+           "atan2_q16", "div_q16") + FLOAT_ENTRIES + ("deferred_matmul",) + GROUPED
 
 
 def _wrappers():
@@ -1056,6 +1209,8 @@ def _wrappers():
     int32 and float entries, where the tree has them; a float entry also
     on its own)."""
     from repro_torch.kernels import cordic as kc
+    from repro_torch.kernels import fused_mlp as kfm
+    from repro_torch.kernels import qmatmul as kqm
     from repro_torch.kernels.flashattn import flash_attention
     from repro_torch.kernels.fused_mlp import fused_swiglu
     from repro_torch.kernels.qmatmul import qmatmul
@@ -1073,7 +1228,11 @@ def _wrappers():
             "flash_attention": (flash_attention,), "universal_unary": (kc.universal_unary,),
             "atan2_q16": entries("atan2_q16", "atan2_f32", "atan2_24_f32"),
             "div_q16": entries("div_q16", "div_f32"),
-            **{name: entries(name) for name in FLOAT_ENTRIES}}
+            **{name: entries(name) for name in FLOAT_ENTRIES},
+            "fused_swiglu_grouped": tuple(getattr(kfm, n) for n in ("fused_swiglu_grouped",)
+                                          if hasattr(kfm, n)),
+            "qmatmul_grouped": tuple(getattr(kqm, n) for n in ("qmatmul_grouped",)
+                                     if hasattr(kqm, n))}
 
 
 def _launch_counts():
@@ -1366,10 +1525,14 @@ class _LogitWatch:
         self.mod._finish = self.orig
 
 
-def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_lens):
-    """Serve the mixed workload at the full config of ``name``; returns
-    the phase record (launch counts of the mixed run included) after the
-    slice-1 checks common to every model."""
+def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_lens,
+                 n_layers=None):
+    """Serve the mixed workload at the full config of ``name`` (its depth
+    cut to ``n_layers`` when given); returns the phase record (launch
+    counts of the mixed run included) after the slice-1 checks common to
+    every model."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1379,6 +1542,9 @@ def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_l
     from repro_torch.runtime import ContinuousBatchingServer, Request, ServingConfig
 
     cfg = get_config(name)
+    published_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     dev = torch.device(DEVICE)
     sync = torch.cuda.synchronize
     torch.cuda.reset_peak_memory_stats()
@@ -1449,10 +1615,11 @@ def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_l
 
     rec = {
         "phase": "serving", "model": cfg.name, "layers": cfg.n_layers,
-        "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "published_layers": published_layers, "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
         "windows": [s.window for s in cfg.period],
         "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+        "experts": [cfg.moe.num_experts, cfg.moe.top_k] if cfg.moe else None,
         "n_slots": 4, "max_len": max_len, "requests": len(reqs),
         "prompt_lens": list(prompt_lens), "max_new": MAX_NEW, "levels": list(levels),
         "generated_tokens": n_tokens, "serve_wall_s": wall, "tokens_per_s": n_tokens / wall,
@@ -1655,7 +1822,7 @@ def deepseek_phase(seed: int, strict: bool):
     if _has_paged():
         cfg, params = srv.cfg, _release(srv)
         del srv
-        paths.update(deepseek_paged_phases(cfg, params, prompts, tokens, rec, seed))
+        paths.update(paged_phases(cfg, params, prompts, tokens, rec, seed))
     return paths
 
 
@@ -1742,10 +1909,104 @@ def _release(srv):
     return params
 
 
-def _near_tie(cfg, params, prompt, want, got) -> dict:
+def _route_replay(cfg, params, prefix, n_last: int) -> dict:
+    """A MoE model's sensitivity to the exact rung's path at ``prefix``:
+    the next token's logits and every layer's expert choices for the last
+    ``n_last`` positions, computed (a) by ``prefill_step`` of all but the
+    last token and one ``decode_step`` (vanilla decode's path) and (b) by
+    ``prefill_step`` of the rest and one ``segment_step`` over the last
+    ``n_last`` tokens (the verify's path), both in a batch-1 cache on a
+    dropless copy of the config (capacity factor E / k: no token
+    dropped, so only the paths differ).  Returns the logit gap, both
+    argmaxes, path (a)'s top-2 margin and ``routing_flips``: the
+    (position, layer) pairs whose expert set differs between the paths.
+    A flip is a routing near tie: f32 noise of the order of the segment
+    phase's logit gaps moved an expert across the top-k boundary, and
+    the expert it swaps in changes the token's output by O(1).  A
+    property of the model at that depth, reported: no gate reads it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import models as tm
+    from repro_torch.models import moe as moe_mod
+
+    m = cfg.moe
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    dev = torch.device(DEVICE)
+    toks = torch.tensor([prefix], dtype=torch.int32, device=dev)
+    n = len(prefix)
+    picks, orig = [], moe_mod.top_k_stable
+
+    def recorded(x, k):
+        vals, idx = orig(x, k)
+        picks.append(idx[0])
+        return vals, idx
+
+    moe_mod.top_k_stable = recorded
+    try:
+        caches = tm.init_caches(dropless, 1, n + 1, device=dev)
+        tm.prefill_step(params, toks[:, :-1], caches, dropless, mode="exact")
+        pre = list(picks)
+        picks.clear()
+        la, _ = tm.decode_step(params, toks[:, -1:], torch.tensor([n - 1], device=dev), caches,
+                               dropless, mode="exact")
+        route_a = [torch.cat([p[n - n_last:], d]) for p, d in zip(pre, picks)]
+        picks.clear()
+        caches = tm.init_caches(dropless, 1, n + 1, device=dev)
+        tm.prefill_step(params, toks[:, :n - n_last], caches, dropless, mode="exact")
+        picks.clear()
+        lb, _, _ = tm.segment_step(params, toks[:, n - n_last:],
+                                   torch.arange(n - n_last, n, device=dev)[None], caches,
+                                   dropless, mode="exact")
+        route_b = list(picks)
+    finally:
+        moe_mod.top_k_stable = orig
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum().item())
+                for a, b in zip(route_a, route_b))
+    top = la[0].topk(2).values
+    return {"routing_flips": flips, "routed_pairs": n_last * len(route_a),
+            "logit_gap": (la[0] - lb[0, -1]).abs().max().item(),
+            "argmax_decode": int(la[0].argmax()), "argmax_segment": int(lb[0, -1].argmax()),
+            "margin": (top[0] - top[1]).item()}
+
+
+def _served_margin(srv, prompt, n_gen: int) -> dict:
+    """Vanilla f32's choice of its ``n_gen``-th generated token of
+    ``prompt``, replayed on ``srv``'s own path: the request served alone
+    (slot 0) with ``max_new=n_gen``, and the top-2 margin of the logits
+    of its last sampling call, with their argmax and whether the alone
+    run's tokens are the batch's (``alone_tokens``)."""
+    import repro_torch.runtime.serve as serve_mod
+    from repro_torch.runtime import Request
+
+    rows, orig = [], serve_mod._finish
+
+    def recorded(logits, temperature, gen):
+        rows.append(logits[0].float().clone())
+        return orig(logits, temperature, gen)
+
+    serve_mod._finish = recorded
+    try:
+        fin = srv.serve([Request(rid=srv.next_rid(), prompt=prompt, max_new=n_gen,
+                                 level="f32")])
+    finally:
+        serve_mod._finish = orig
+    top = rows[-1].topk(2)
+    return {"margin": (top.values[0] - top.values[1]).item(),
+            "argmax_alone": int(top.indices[0]),
+            "alone_tokens": next(iter(fin.values())).tokens}
+
+
+def _near_tie(cfg, params, prompt, want, got, srv=None) -> dict:
     """{"equal": bool} and, where ``got`` differs from ``want`` (the vanilla
     stream, prompt included), the first differing generated position and
-    the top-2 margin there of the exact-rung logits of the vanilla prefix."""
+    the top-2 margin there of the exact-rung logits of the vanilla prefix:
+    for a dense model from ``prefill_step`` of that prefix; for a MoE
+    model from vanilla's own served path (:func:`_served_margin` on
+    ``srv``), since a one-shot prefill drops at capacity what the served
+    chunks and decodes do not."""
     import torch
 
     from repro_torch import models as tm
@@ -1753,6 +2014,11 @@ def _near_tie(cfg, params, prompt, want, got) -> dict:
     if got == want:
         return {"equal": True}
     i = next(j for j in range(len(prompt), len(want)) if j >= len(got) or got[j] != want[j])
+    if cfg.moe:
+        alone = _served_margin(srv, prompt, i - len(prompt) + 1)
+        return {"equal": False, "first_diff": i - len(prompt), "margin": alone["margin"],
+                "argmax_alone": alone["argmax_alone"], "vanilla_token": want[i],
+                "alone_equals_batch": alone["alone_tokens"] == want[:i + 1]}
     caches = tm.init_caches(cfg, 1, len(want) + 1, device=torch.device(DEVICE))
     logits, _ = tm.prefill_step(params, torch.tensor([want[:i]], dtype=torch.int32,
                                                      device=torch.device(DEVICE)),
@@ -1784,16 +2050,24 @@ def _pool_drained(srv) -> bool:
                for gk, g in srv.cache_ops.groups.items())
 
 
-def deepseek_paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int):
-    """deepseek-7b on the paged pool, then speculative requests at both
-    draft rungs against paged vanilla f32, then prefix sharing against the
-    same run with sharing off.  Returns {path: launches}."""
+def _ffn_kernels(cfg) -> tuple:
+    """The kernels a FAST pass's feed-forward blocks launch: K2 (then K1)
+    for a dense MLP, the grouped K2 and K1 entries for MoE."""
+    return GROUPED if cfg.moe else ("fused_swiglu",)
+
+
+def paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int,
+                 prefix_sharing: bool = True):
+    """``cfg`` (deepseek-7b; granite-moe-3b-a800m from slice 9) on the
+    paged pool, then speculative requests at both draft rungs against
+    paged vanilla f32 (:func:`spec_phases`: identity-gated for a dense
+    model, reported for a MoE one), then (``prefix_sharing``) prefix sharing against
+    the same run with sharing off.  Returns {path: launches}."""
     import numpy as np
     import torch
 
     import repro_torch.runtime.serve as serve_mod
     from repro_torch.runtime import ContinuousBatchingServer, Request, ServingConfig
-    from repro_torch.runtime import SpeculativeConfig
 
     dev, sync = torch.device(DEVICE), torch.cuda.synchronize
     paged = dict(n_slots=4, max_len=1024, cache="paged", page_size=PAGE)
@@ -1866,74 +2140,21 @@ def deepseek_paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int
     require(logits_ok, "paged: logits not all finite")
     require(drained, "paged: the pool did not drain after the run")
     require(isolation_ok, "paged: the q16_16 request served alone differs from its batch tokens")
-    for name in ("qmatmul", "fused_swiglu", "cordic_sincos"):
+    for name in ("qmatmul", "cordic_sincos") + _ffn_kernels(cfg):
         require(launches[name] > 0, f"paged: kernel {name} was not launched")
     require(launches["flash_attention"] == 0, "paged: chunked prefill launched K4")
+    if cfg.moe:
+        require(launches["fused_swiglu"] == 0, "paged: a MoE model launched the dense K2")
     want_k3 = sum(-(-len(p) // PAGED_CHUNK) for p, lv in zip(prompts, LEVELS) if lv == "q16_16")
     require(launches["cordic_sincos"] == want_k3 + q16_passes,
             f"paged: K3 launched {launches['cordic_sincos']} times, want {want_k3 + q16_passes}")
     paths["paged"] = launches
 
-    # -- speculative requests at both draft rungs ---------------------------
     spec_prompts = [next(p for p in prompts if len(p) == n) for n in SPEC_LENS]
-    vanilla, vanilla_wall, spec_recs = None, None, {}
-    for rung in ("q8_8", "q16_16"):
-        torch.cuda.reset_peak_memory_stats()
-        srv = ContinuousBatchingServer(cfg, params, ServingConfig(
-            **paged, prefill_chunk=PAGED_CHUNK,
-            speculative=SpeculativeConfig(k=SPEC_K, draft_level=rung, max_len=1024)), device=dev)
-        srv.serve([Request(rid=srv.next_rid(), prompt=prompts[0][:8], max_new=SPEC_K + 2,
-                           speculative=True)])
-        if vanilla is None:
-            sync()
-            t0 = time.perf_counter()
-            v = srv.serve([Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, level="f32")
-                           for p in spec_prompts])
-            sync()
-            vanilla_wall = time.perf_counter() - t0
-            vanilla = [f.tokens for f in sorted(v.values(), key=lambda f: f.rid)]
-        passes = _count_drafts(srv)
-        stats0 = srv.stats
-        sync()
-        _reset_launch_counts()
-        t0 = time.perf_counter()
-        fins = srv.serve([Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, speculative=True)
-                          for p in spec_prompts])
-        sync()
-        wall = time.perf_counter() - t0
-        launches = _launch_counts()
-        got = [f.tokens for f in sorted(fins.values(), key=lambda f: f.rid)]
-        st = {k: srv.stats[k] - stats0[k] for k in ("spec_rounds", "spec_drafted",
-                                                    "spec_accepted", "decode_steps")}
-        ties = [_near_tie(cfg, params, p, w, g) for p, w, g in zip(spec_prompts, vanilla, got)]
-        names = tuple(lv for lv, _ in serve_mod.SPEC_DRAFT_LEVELS)
-        spec_recs[rung] = rec = {
-            "phase": "speculative", "model": cfg.name, "draft_level": rung, "k": SPEC_K,
-            "prompt_lens": list(SPEC_LENS), "max_new": MAX_NEW, **st,
-            "acceptance_rate": st["spec_accepted"] / max(st["spec_drafted"], 1),
-            "draft_passes": passes[0], "serve_wall_s": wall,
-            "tokens_per_s": 4 * MAX_NEW / wall, "vanilla_f32_tokens_per_s": 4 * MAX_NEW / vanilla_wall,
-            "draft_rungs_end": [names[i] for i in srv.draft_arbiter.idx],
-            "draft_switches": [list(s) for s in srv.draft_arbiter.switches],
-            "launches": launches,
-            "launches_per_draft_pass": {k: v / max(passes[0], 1) for k, v in launches.items() if v},
-            "vs_vanilla": ties, "pool_drained": _pool_drained(srv),
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": nvidia_smi()}
-        emit(rec)
-        del srv, fins
-        gc.collect()
-        torch.cuda.empty_cache()
-        for t in ties:
-            require(t["equal"] or t["margin"] < NEAR_TIE,
-                    f"speculative {rung}: differs from vanilla f32 beyond a near tie: {t}")
-        require(rec["pool_drained"], f"speculative {rung}: the pool did not drain")
-        require(st["spec_rounds"] > 0 and passes[0] > 0, f"speculative {rung}: no round ran")
-        per = rec["launches_per_draft_pass"]
-        require(per.get("cordic_sincos") == 1 and per.get("qmatmul", 0) > 0
-                and per.get("fused_swiglu", 0) > 0 and launches["flash_attention"] == 0,
-                f"speculative {rung}: launches per draft pass {per}")
-        paths[f"spec_draft_{rung}"] = launches
+    paths.update(spec_phases(cfg, params, spec_prompts, identity=not cfg.moe))
 
+    if not prefix_sharing:
+        return paths
     # -- prefix sharing against the same chunk grid without it ---------------
     rng = np.random.default_rng(seed + 1)
     prefix = rng.integers(0, cfg.vocab, PREFIX_LEN).tolist()
@@ -1974,6 +2195,89 @@ def deepseek_paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int
     require(on["prefix_hits"] == 3 and on["prefix_tokens_reused"] == 3 * PREFIX_LEN,
             f"prefix sharing: {on['prefix_hits']} hits, {on['prefix_tokens_reused']} tokens reused")
     paths["prefix_sharing"] = launches
+    return paths
+
+
+def spec_phases(cfg, params, spec_prompts, identity: bool, tag: str = "") -> dict:
+    """Speculative requests (paged pool, k = SPEC_K) at both draft rungs
+    against paged vanilla f32 on ``spec_prompts``.  With ``identity``
+    every stream must equal vanilla's or part from it only at a near tie
+    (:func:`_near_tie`), and each draft rung must have a draft accepted;
+    without it (a MoE model at a depth where the exact rung's decode and
+    verify paths part: ``moe_path_noise``) the streams and the acceptance
+    are reported.  Returns {path + tag: launches}."""
+    import torch
+
+    import repro_torch.runtime.serve as serve_mod
+    from repro_torch.runtime import ContinuousBatchingServer, Request, ServingConfig
+    from repro_torch.runtime import SpeculativeConfig
+
+    dev, sync = torch.device(DEVICE), torch.cuda.synchronize
+    paged = dict(n_slots=4, max_len=1024, cache="paged", page_size=PAGE)
+    vanilla, vanilla_wall, paths = None, None, {}
+    for rung in ("q8_8", "q16_16"):
+        torch.cuda.reset_peak_memory_stats()
+        srv = ContinuousBatchingServer(cfg, params, ServingConfig(
+            **paged, prefill_chunk=PAGED_CHUNK,
+            speculative=SpeculativeConfig(k=SPEC_K, draft_level=rung, max_len=1024)), device=dev)
+        srv.serve([Request(rid=srv.next_rid(), prompt=spec_prompts[0][:8], max_new=SPEC_K + 2,
+                           speculative=True)])
+        if vanilla is None:
+            sync()
+            t0 = time.perf_counter()
+            v = srv.serve([Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, level="f32")
+                           for p in spec_prompts])
+            sync()
+            vanilla_wall = time.perf_counter() - t0
+            vanilla = [f.tokens for f in sorted(v.values(), key=lambda f: f.rid)]
+        passes = _count_drafts(srv)
+        stats0 = srv.stats
+        sync()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        fins = srv.serve([Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, speculative=True)
+                          for p in spec_prompts])
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        got = [f.tokens for f in sorted(fins.values(), key=lambda f: f.rid)]
+        st = {k: srv.stats[k] - stats0[k] for k in ("spec_rounds", "spec_drafted",
+                                                    "spec_accepted", "decode_steps")}
+        ties = [_near_tie(cfg, params, p, w, g, srv) for p, w, g in zip(spec_prompts, vanilla, got)]
+        names = tuple(lv for lv, _ in serve_mod.SPEC_DRAFT_LEVELS)
+        rec = {
+            "phase": "speculative", "model": cfg.name, "layers": cfg.n_layers,
+            "identity_gated": identity, "draft_level": rung, "k": SPEC_K,
+            "prompt_lens": list(SPEC_LENS), "max_new": MAX_NEW, **st,
+            "acceptance_rate": st["spec_accepted"] / max(st["spec_drafted"], 1),
+            "draft_passes": passes[0], "serve_wall_s": wall,
+            "tokens_per_s": 4 * MAX_NEW / wall, "vanilla_f32_tokens_per_s": 4 * MAX_NEW / vanilla_wall,
+            "draft_rungs_end": [names[i] for i in srv.draft_arbiter.idx],
+            "draft_switches": [list(s) for s in srv.draft_arbiter.switches],
+            "launches": launches,
+            "launches_per_draft_pass": {k: v / max(passes[0], 1) for k, v in launches.items() if v},
+            "vs_vanilla": ties, "pool_drained": _pool_drained(srv),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": nvidia_smi()}
+        emit(rec)
+        del srv, fins
+        gc.collect()
+        torch.cuda.empty_cache()
+        for t in ties:
+            require(not identity or t["equal"] or t["margin"] < NEAR_TIE,
+                    f"speculative {rung}: differs from vanilla f32 beyond a near tie: {t}")
+        require(rec["pool_drained"], f"speculative {rung}: the pool did not drain")
+        require(st["spec_rounds"] > 0 and passes[0] > 0, f"speculative {rung}: no round ran")
+        require(not identity or st["spec_accepted"] > 0,
+                f"speculative {rung}: no draft token accepted in {st['spec_drafted']}")
+        per = rec["launches_per_draft_pass"]
+        require(per.get("cordic_sincos") == 1 and per.get("qmatmul", 0) > 0
+                and per.get("fused_swiglu", 0) > 0 and launches["flash_attention"] == 0
+                if not cfg.moe else
+                per.get("cordic_sincos") == 1 and per.get("qmatmul", 0) > 0
+                and all(per.get(g) == cfg.n_layers for g in GROUPED)
+                and launches["fused_swiglu"] == 0 and launches["flash_attention"] == 0,
+                f"speculative {rung}: launches per draft pass {per}")
+        paths[f"spec_draft_{rung}{tag}"] = launches
     return paths
 
 
@@ -2037,6 +2341,313 @@ def gemma2_spec_phase(cfg, params, prompt, want):
 
 
 # ---------------------------------------------------------------------------
+# phases 6-8: the MoE family, the int8 KV cache and command-r (slice 9)
+# ---------------------------------------------------------------------------
+
+#: mixtral-8x22b and command-r-35b run at full width and this depth (of 56
+#: and 40 layers): their full f32 weights do not fit one card
+CUT_LAYERS = 2
+#: command-r's prompt lengths and rungs: request 0 is the only q16_16
+#: lane of the first wave (the isolation contract)
+CR_LENS = (17, 96, 300, 480, 64, 150)
+CR_LEVELS = ("q16_16", "f32", "f32", "f32", "q16_16", "q16_16")
+CR_PROMPT = 480
+#: the int8 KV cache phase: a 480-token prefill and teacher-forced decodes
+KV_PROMPT, KV_STEPS = 480, 16
+#: the MoE speculative identity gate's depth: full width, and few enough
+#: layers that the exact rung's decode and verify paths still agree (at
+#: 32 random layers they part: moe_path_noise, tools/torch_moe_path_divergence.py)
+SPEC_ID_LAYERS = 4
+
+
+def _has_moe() -> bool:
+    """False only for a --root checkout older than the MoE slice."""
+    from repro_torch.configs import PORTED
+
+    return "granite_moe_3b_a800m" in PORTED
+
+
+def moe_gates(rec, cfg) -> None:
+    """Per FAST pass of a MoE model: the grouped K2 and K1 entries
+    exactly ``n_layers`` times each and the dense K2 never; K4 once a
+    layer of every contiguous prefill; no grouped launch at ``f32``."""
+    L = cfg.n_layers
+    for lv, grouped in (("q16_16", L), ("f32", 0)):
+        for what, counts in (("prefill", rec["launches_per_prefill"][lv]),
+                             ("decode pass", rec["launches_per_decode_tick"][lv])):
+            got = {k: counts[k] for k in GROUPED + ("fused_swiglu",)}
+            require(got == {**{g: grouped for g in GROUPED}, "fused_swiglu": 0},
+                    f"{cfg.name}: a {lv} {what} launched {got}, want the grouped entries "
+                    f"{grouped} times each and the dense K2 never")
+        require(rec["launches_per_prefill"][lv]["flash_attention"] == L,
+                f"{cfg.name}: a {lv} prefill launched K4 "
+                f"{rec['launches_per_prefill'][lv]['flash_attention']} times, want {L}")
+    launches = rec["launches"]
+    want = L * (rec["q16_16_prefills"] + rec["q16_16_passes"])
+    for g in GROUPED:
+        require(launches[g] == want, f"{cfg.name}: {g} launched {launches[g]} times in the "
+                f"mixed run, want {want} (n_layers x FAST passes)")
+    require(launches["fused_swiglu"] == 0, f"{cfg.name}: the dense K2 ran in the mixed run")
+    require(launches["flash_attention"] == L * rec["requests"],
+            f"{cfg.name}: K4 launched {launches['flash_attention']} times for "
+            f"{rec['requests']} prefills, want {L} each")
+
+
+def _count_plain(counts: dict):
+    """Wrap K2's and K1's plain versions (which the wrappers, the grouped
+    entries' included, must never reach with a CUDA tensor) so ``counts``
+    sees every call; returns the undo."""
+    import importlib
+
+    saved = [(importlib.import_module("repro_torch.kernels.fused_mlp.fused_mlp"),
+              "fused_swiglu_plain"),
+             (importlib.import_module("repro_torch.kernels.qmatmul.qmatmul"),
+              "qmatmul_plain")]
+    originals = [getattr(mod, name) for mod, name in saved]
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapper
+
+    for (mod, name), fn in zip(saved, originals):
+        setattr(mod, name, counted(name, fn))
+
+    def undo():
+        for (mod, name), fn in zip(saved, originals):
+            setattr(mod, name, fn)
+    return undo
+
+
+def _int8_rows_exact(c8: dict, c32: dict, rows) -> bool:
+    """The int8 cache ``c8`` holds, at the positions ``rows(pos)`` selects,
+    its f32 twin's rows quantized (``attention._q8``: payloads and
+    exponents bit for bit) at the same positions, every layer."""
+    import torch
+
+    from repro_torch.models.attention import _q8
+
+    ok = True
+    for key, node in c32.items():
+        sel = rows(node["pos"])
+        ok &= torch.equal(c8[key]["pos"], node["pos"])
+        for name in ("k", "v"):
+            q, e = _q8(node[name], axes=(-1,))
+            ok &= torch.equal(c8[key][name][sel], q[sel])
+            ok &= torch.equal(c8[key][f"{name}_exp"][sel], e[sel])
+    return bool(ok)
+
+
+def int8_kv_phase(srv, prompt, seed: int) -> dict:
+    """The served model's int8 KV cache (``init_caches(quantized=True)``)
+    against its f32 cache on one request: a KV_PROMPT-token prefill and
+    KV_STEPS teacher-forced decodes (the same random tokens fed to both),
+    at each rung.  Gated: after the prefill every written row of the int8
+    cache is its f32 twin's row quantized, bit for bit (placement and
+    quantizer at the model's shapes); after the decodes so are the first
+    layer's decode rows (its input is the forced token alone); and the
+    int8 decode attention over the final cache equals the f32 decode
+    attention over the same cache dequantized (both run in f32; powers of
+    two scale exactly).  Reported: the largest logit difference against
+    the f32 cache's logit scale and tests/test_quantized_kv.py's bound
+    (0.08 * scale + 0.15: a random model's attention with weights at
+    n_periods**-0.5, the reference's init law, is a hard max, which the
+    cache's rounding can move), and the bytes of each cache."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models as tm
+    from repro_torch.models.attention import decode_attention
+
+    cfg, dev = srv.cfg, torch.device(DEVICE)
+    forced = np.random.default_rng(seed + 2).integers(0, cfg.vocab, KV_STEPS)
+    max_len = KV_PROMPT + KV_STEPS
+    out = {"phase": "int8_kv_cache", "model": cfg.name, "prompt_len": KV_PROMPT,
+           "decode_steps": KV_STEPS}
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    for lv, mode in (("q16_16", "fast"), ("f32", "exact")):
+        logits, nbytes, caches = {}, {}, {}
+        for quantized in (False, True):
+            c = tm.init_caches(cfg, 1, max_len, device=dev, quantized=quantized)
+            nbytes[quantized] = sum(v.numel() * v.element_size() for node in c.values()
+                                    for v in node.values())
+            lg, c = tm.prefill_step(srv.params, torch.tensor([prompt[:KV_PROMPT]], device=dev),
+                                    c, cfg, mode=mode)
+            if quantized:
+                prefill_exact = _int8_rows_exact(c, pre32, lambda pos: pos >= 0)
+                del pre32
+            else:
+                pre32 = {k: {n: t.clone() for n, t in node.items()} for k, node in c.items()}
+            seq = [lg]
+            for i in range(KV_STEPS):
+                lg, c = tm.decode_step(srv.params, torch.tensor([[int(forced[i])]], device=dev),
+                                       torch.tensor([KV_PROMPT + i], device=dev), c, cfg,
+                                       mode=mode)
+                seq.append(lg)
+            logits[quantized], caches[quantized] = torch.stack(seq).float(), c
+        c8, c32 = caches[True], caches[False]
+        first = {k: {n: t[:1] for n, t in node.items()} for k, node in c8.items()}
+        decode_exact = _int8_rows_exact(
+            {k: v for k, v in first.items() if k == "pos0"},
+            {k: {n: t[:1] for n, t in node.items()} for k, node in c32.items() if k == "pos0"},
+            lambda pos: pos >= KV_PROMPT)
+        # the decode attention on the last layer's final int8 cache, a
+        # random query at the f32 cache's key scale
+        node = {n: t[-1] for n, t in c8[f"pos{len(cfg.period) - 1}"].items()}
+        k_rms = c32["pos0"]["k"][0].float().pow(2).mean().sqrt().item()
+        q = torch.randn((1, 1, cfg.n_heads, cfg.head_dim), generator=gen, device=dev) * k_rms
+        layer = cfg.period[-1]
+        kw = dict(q_position=torch.tensor([max_len - 1], device=dev), window=layer.window,
+                  cap=cfg.attn_softcap)
+        att8 = decode_attention(q, node["k"], node["v"], node["pos"], k_exp=node["k_exp"],
+                                v_exp=node["v_exp"], **kw)
+        deq = {n: node[n].float() * torch.exp2(node[f"{n}_exp"].float())[..., None]
+               for n in ("k", "v")}
+        att32 = decode_attention(q, deq["k"], deq["v"], node["pos"], **kw)
+        att_err = (att8 - att32).abs().max().item()
+        diff = (logits[True] - logits[False]).abs().max().item()
+        scale = logits[False].abs().max().item()
+        out[lv] = {"prefill_rows_bit_exact": prefill_exact,
+                   "first_layer_decode_rows_bit_exact": decode_exact,
+                   "decode_attention_max_abs_err": att_err,
+                   "decode_attention_scale": att32.abs().max().item(),
+                   "decode_attention_bit_exact": bool(torch.equal(att8, att32)),
+                   "k_rms_first_layer": k_rms,
+                   "max_abs_logit_diff": diff, "logit_scale": scale,
+                   "reference_bound": 0.08 * scale + 0.15,
+                   "argmax_agree": int((logits[True].argmax(-1) == logits[False].argmax(-1))
+                                       .sum().item()),
+                   "positions": KV_STEPS + 1,
+                   "finite": bool(torch.isfinite(logits[True]).all().item())}
+        out["cache_bytes_f32"], out["cache_bytes_int8"] = nbytes[False], nbytes[True]
+        del caches, c8, c32, first, node, deq
+    out["nvidia_smi"] = nvidia_smi()
+    emit(out)
+    for lv in ("q16_16", "f32"):
+        r = out[lv]
+        what = f"{cfg.name} int8 KV cache ({lv})"
+        require(r["finite"], f"{what}: logits not all finite")
+        require(r["prefill_rows_bit_exact"], f"{what}: the prefill's rows are not the f32 "
+                "cache's rows quantized")
+        require(r["first_layer_decode_rows_bit_exact"], f"{what}: the first layer's decode "
+                "rows are not the f32 cache's rows quantized")
+        require(r["decode_attention_max_abs_err"] <= 1e-6 * r["decode_attention_scale"],
+                f"{what}: decode attention over the int8 cache differs from it over the "
+                f"dequantized cache by {r['decode_attention_max_abs_err']}")
+    # int8 payloads and one int32 exponent per row and kv head of 64
+    # values: 2 * (64 + 4) bytes against 2 * 64 * 4
+    require(out["cache_bytes_int8"] < 0.3 * out["cache_bytes_f32"],
+            f"int8 KV cache: {out['cache_bytes_int8']} bytes against {out['cache_bytes_f32']}")
+    return out
+
+
+def spec_identity_phase(name: str, seed: int) -> dict:
+    """``name`` at full width cut to SPEC_ID_LAYERS layers: the exact
+    rung's path noise at that depth (reported) and speculative requests
+    at both draft rungs under the identity gate, their acceptance
+    reported.  Returns {path: launches}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(name), n_layers=SPEC_ID_LAYERS)
+    params = init_params(cfg, seed=seed, device=torch.device(DEVICE))
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in PROMPT_LENS]
+    spec_prompts = [next(p for p in prompts if len(p) == n) for n in SPEC_LENS]
+    emit({"phase": "moe_path_noise", "model": cfg.name, "layers": cfg.n_layers,
+          "prefix_len": len(spec_prompts[-1]), "segment": 9,
+          **_route_replay(cfg, params, spec_prompts[-1], 9), "nvidia_smi": nvidia_smi()})
+    paths = spec_phases(cfg, params, spec_prompts, identity=True,
+                        tag=f"_{SPEC_ID_LAYERS}_layers")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def granite_phase(seed: int, strict: bool):
+    """granite-moe-3b-a800m at its published width and depth (32 layers, 40
+    experts top-8): the mixed workload on the contiguous pool with the MoE
+    gates, K1's and K2's plain versions never reached, the int8 KV cache,
+    then the paged pool and speculative
+    requests at both draft rungs (reported), then the speculative identity
+    gate at SPEC_ID_LAYERS layers."""
+    import torch
+
+    plain = {}
+    undo = _count_plain(plain)
+    try:
+        rec, srv, prompts, tokens = _serve_model("granite_moe_3b_a800m", seed, 1024,
+                                                 PROMPT_LENS, LEVELS, (480,))
+        moe_gates(rec, srv.cfg)
+        paths = {"serve": rec["launches"]}
+        int8_kv_phase(srv, next(p for p in prompts if len(p) == KV_PROMPT), seed)
+        # the exact rung's path noise through 32 routed layers: the
+        # KV_PROMPT-token request's prompt and first 8 tokens, decode
+        # against segment (reported: why the identity gate runs at
+        # SPEC_ID_LAYERS)
+        long = next(t for p, t in zip(prompts, tokens) if len(p) == KV_PROMPT)
+        emit({"phase": "moe_path_noise", "model": srv.cfg.name, "prefix_len": KV_PROMPT + 8,
+              "segment": 9, **_route_replay(srv.cfg, srv.params, long[:KV_PROMPT + 8], 9),
+              "nvidia_smi": nvidia_smi()})
+        cfg, params = srv.cfg, _release(srv)
+        del srv
+        paths.update(paged_phases(cfg, params, prompts, tokens, rec, seed,
+                                  prefix_sharing=False))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(spec_identity_phase("granite_moe_3b_a800m", seed))
+    finally:
+        undo()
+    require(not plain, f"granite: the K1 / K2 plain versions ran on the card: {plain}")
+    return paths
+
+
+def mixtral_phase(seed: int, strict: bool):
+    """mixtral-8x22b at full width (d_model 6144, 8 experts of 16384, top-2,
+    window 4096), CUT_LAYERS of its 56 layers: the mixed workload plus one
+    4500-token prompt per rung on an 8192-token pool, so a prompt crosses
+    the window with MoE behind it; the MoE gates; the int8 KV cache."""
+    plain = {}
+    undo = _count_plain(plain)
+    try:
+        rec, srv, prompts, _ = _serve_model("mixtral_8x22b", seed, 8192,
+                                            PROMPT_LENS + (LONG_PROMPT, LONG_PROMPT),
+                                            LEVELS + ("q16_16", "f32"), (480, LONG_PROMPT),
+                                            n_layers=CUT_LAYERS)
+        int8_kv_phase(srv, next(p for p in prompts if len(p) == KV_PROMPT), seed)
+    finally:
+        undo()
+    require(not plain, f"mixtral: the K1 / K2 plain versions ran on the card: {plain}")
+    moe_gates(rec, srv.cfg)
+    return {"serve": rec["launches"]}
+
+
+def command_r_phase(seed: int, strict: bool):
+    """command-r-35b at full width (d_model 8192, d_ff 22528, the 256000 x
+    8192 tied embedding), CUT_LAYERS of its 40 layers: a few requests at
+    both rungs on K1-K4 (K2 at K=8192 F=22528, K1 at K=22528), then the
+    int8 KV cache at head_dim 128."""
+    rec, srv, prompts, _ = _serve_model("command_r_35b", seed, 1024, CR_LENS, CR_LEVELS,
+                                        (CR_PROMPT,), n_layers=CUT_LAYERS)
+    launches = rec["launches"]
+    for name in ("qmatmul", "fused_swiglu", "cordic_sincos", "flash_attention"):
+        require(launches[name] > 0, f"command-r: kernel {name} was not launched while serving")
+    require(launches["flash_attention"] == CUT_LAYERS * rec["requests"],
+            f"command-r: K4 launched {launches['flash_attention']} times, want "
+            f"{CUT_LAYERS} a prefill")
+    int8_kv_phase(srv, next(p for p in prompts if len(p) == KV_PROMPT), seed)
+    return {"serve": launches}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2067,6 +2678,13 @@ REPLACES = {
     "deferred_matmul": ("src/repro_torch/kernels/csrc/linalg.cu",
                         "src/repro/core/linalg.py::qmatmul_deferred (plain JAX, not a Pallas "
                         "kernel)"),
+    # the MoE experts' products, XLA batched dots in the reference
+    "fused_swiglu_grouped": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
+                             "src/repro/models/moe.py:64 (_fused_expert_mlp: XLA batched dots "
+                             "and swiglu_body_q16, not a Pallas kernel)"),
+    "qmatmul_grouped": ("src/repro_torch/kernels/csrc/qmatmul.cu",
+                        "src/repro/models/moe.py:64 (_fused_expert_mlp: an XLA batched dot, "
+                        "not a Pallas kernel)"),
 }
 
 
@@ -2142,7 +2760,13 @@ def main(argv=None) -> int:
             by_path["engine_matmul"] = engine_matmul_phase(args.seed)
         emit({"phase": "engine done", "elapsed_s": time.perf_counter() - t_start})
     if args.only is None:
-        for model, phase in (("deepseek_7b", deepseek_phase), ("gemma2_2b", gemma2_phase)):
+        models = [("deepseek_7b", deepseek_phase), ("gemma2_2b", gemma2_phase)]
+        if _has_moe():
+            models += [("granite_moe_3b_a800m", granite_phase), ("mixtral_8x22b", mixtral_phase),
+                       ("command_r_35b", command_r_phase)]
+        else:
+            require(root != ROOT, "the MoE slice's configs are missing")
+        for model, phase in models:
             gc.collect()
             torch.cuda.empty_cache()
             paths = phase(args.seed, strict=root == ROOT)

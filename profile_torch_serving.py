@@ -3,13 +3,14 @@
 
 Usage (repository root, on a machine with an NVIDIA card)::
 
-    python3 profile_torch_serving.py [--model gemma2_2b] [--out FILE]
+    python3 profile_torch_serving.py [--model gemma2_2b | granite_moe_3b_a800m] [--out FILE]
 
-Builds the full model (deepseek-7b by default, or gemma2-2b; random
-weights from a seed) behind ``ContinuousBatchingServer(n_slots=4,
-max_len=1024)`` (gemma2-2b: ``max_len=8192``, its published context)
-with the timing tier of the server's telemetry on (no device barriers,
-no trace), and measures windows of real ``serve()`` calls:
+Builds the full model (deepseek-7b by default, gemma2-2b or
+granite-moe-3b-a800m; random weights from a seed) behind
+``ContinuousBatchingServer(n_slots=4, max_len=1024)`` (gemma2-2b:
+``max_len=8192``, its published context) with the timing tier of the
+server's telemetry on (no device barriers, no trace), and measures
+windows of real ``serve()`` calls:
 
 * ``prefill <n> <rung>``: one 480-token prompt (gemma2-2b: and one of
   4500 tokens, past the local layers' window), ``max_new=1``;
@@ -20,7 +21,10 @@ no trace), and measures windows of real ``serve()`` calls:
   lengths 17-480, 16 new tokens each, half per rung; gemma2-2b adds one
   4500-token prompt per rung).
 
-Each window is served twice on the same prompts: once plain, for the
+The warm-up serves one prompt of every timed length at both rungs, so
+no timed window pays a kernel's first launch at its shapes (the cuBLAS
+handles, the allocator's pools, the launchers' attribute setup).  Each
+window is served twice on the same prompts: once plain, for the
 host wall time and the server's ``tick_seconds`` / ``prefill_seconds``
 sums, and once under ``torch.profiler`` for the device's busy time (the
 summed times of the kernels and copies: one stream, so they do not
@@ -48,7 +52,8 @@ MAX_NEW = 16
 #: decode ticks in the decode window
 TICKS = 16
 #: model -> (pool length, the long prompts its workload adds)
-MODELS = {"deepseek_7b": (1024, ()), "gemma2_2b": (8192, (4500,))}
+MODELS = {"deepseek_7b": (1024, ()), "gemma2_2b": (8192, (4500,)),
+          "granite_moe_3b_a800m": (1024, ())}
 PHASES = ("host_schedule", "device_dispatch", "sync")
 
 
@@ -86,9 +91,11 @@ def main(argv=None) -> int:
     def prompt(n):
         return rng.integers(0, cfg.vocab, n).tolist()
 
-    # warm-up at both rungs
-    srv.serve([Request(rid=srv.next_rid(), prompt=prompt(8), max_new=2, level=lv)
-               for lv in ("q16_16", "f32")])
+    # warm-up at both rungs and every timed length: the prefill windows'
+    # prompts, the decode window's 64-token lanes and the mixed workload's
+    for n in sorted(set(PROMPT_LENS + (64,) + long_prompts)):
+        srv.serve([Request(rid=srv.next_rid(), prompt=prompt(n), max_new=2, level=lv)
+                   for lv in ("q16_16", "f32")])
     torch.cuda.synchronize()
 
     def phase_sums():

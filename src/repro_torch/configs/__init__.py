@@ -1,9 +1,11 @@
 """Architecture configs (reference: ``src/repro/configs/__init__.py``).
 
 The port carries the families whose layers it has ported: deepseek_7b
-(dense GQA attention + SwiGLU) and gemma2_2b (the same, with local /
+(dense GQA attention + SwiGLU), gemma2_2b (the same, with local /
 global sliding-window periods, score and final softcaps, tied
-embeddings).  ``get_config`` raises
+embeddings), command_r_35b (dense, tied embeddings) and the
+Mixture-of-Experts decoders granite_moe_3b_a800m and mixtral_8x22b
+(sliding window 4096).  ``get_config`` raises
 ``NotImplementedError`` naming the ROADMAP item for every other family.
 """
 
@@ -26,13 +28,10 @@ ARCH_IDS = (
     "musicgen_large",
 )
 
-PORTED = ("deepseek_7b", "gemma2_2b")
+PORTED = ("deepseek_7b", "gemma2_2b", "command_r_35b", "granite_moe_3b_a800m", "mixtral_8x22b")
 
 #: where each family not ported yet stands in ROADMAP.md
 _WAITING = {
-    "command_r_35b": "queue 1 item 7 (dense decoders after deepseek_7b)",
-    "granite_moe_3b_a800m": "queue 1 item 10 (MoE)",
-    "mixtral_8x22b": "queue 1 item 10 (MoE)",
     "minicpm3_4b": "queue 1 item 10 (MLA)",
     "jamba_v01_52b": "queue 1 item 10 (SSM hybrid)",
     "mamba2_1_3b": "queue 1 item 10 (SSM)",

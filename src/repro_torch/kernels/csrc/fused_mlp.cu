@@ -14,6 +14,12 @@
 // a few hundred integer operations per output, negligible next to K.
 // Optional gate/sigmoid outputs expose the integer intermediates so the
 // kernel can be held bit-exact against the plain version.
+//
+// The export runs G such hidden stages of one shape in one launch, the
+// group on blockIdx.z (int8_gemm.cuh): G = 1 is K2; G = E is the MoE
+// experts' gate and up products with this epilogue (not a TPU kernel: the
+// reference computes them as XLA batched dots and swiglu_body_q16 in
+// src/repro/models/moe.py::_fused_expert_mlp).
 #include "cordic.cuh"
 #include "int8_gemm.cuh"
 
@@ -26,11 +32,12 @@ struct SwigluEpilogue {
   float* out;
   int32_t* gate_out;  // may be null
   int32_t* sig_out;   // may be null
-  int N;
-  __device__ __forceinline__ void operator()(int m, int n, int acc_g, int acc_u) const {
+  int M, N;
+  __device__ __forceinline__ void operator()(int z, int m, int n, int acc_g, int acc_u) const {
     using namespace rq;
-    const int32_t e_g = wadd(*ea, eg[n]);
-    const int32_t e_u = wadd(*ea, eu[n]);
+    const size_t col = static_cast<size_t>(z) * N + n;
+    const int32_t e_g = wadd(*ea, eg[col]);
+    const int32_t e_u = wadd(*ea, eu[col]);
     const int32_t s = wadd(e_g, 16);
     int32_t gate;
     if (s >= 0) {
@@ -44,7 +51,7 @@ struct SwigluEpilogue {
     }
     const int32_t sig = sigmoid_q16(gate);
     const float comb = pow2f(wsub(wadd(e_g, e_u), 16));
-    const size_t idx = static_cast<size_t>(m) * N + n;
+    const size_t idx = (static_cast<size_t>(z) * M + m) * N + n;
     out[idx] = __fmul_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc_g), __int2float_rn(acc_u)),
                                    __int2float_rn(sig)),
                          comb);
@@ -57,13 +64,13 @@ struct SwigluEpilogue {
 
 REPRO_DEFINE_ERROR_STRING
 
-// x (M,K) int8, wg/wu (K,F) int8, ea (1,) and eg/eu (F,) int32 on the
-// device; out (M,F) f32; gate/sig (M,F) int32 or null.
+// x (G,M,K) int8, wg/wu (G,K,F) int8, ea (1,) and eg/eu (G,F) int32 on
+// the device; out (G,M,F) f32; gate/sig (G,M,F) int32 or null.
 REPRO_EXPORT int repro_fused_swiglu(const int8_t* x, const int8_t* wg, const int8_t* wu,
                                     const int32_t* ea, const int32_t* eg, const int32_t* eu,
-                                    float* out, int32_t* gate, int32_t* sig, int M, int F,
+                                    float* out, int32_t* gate, int32_t* sig, int G, int M, int F,
                                     int K, void* stream) {
   rq::BMats<2> b{{wg, wu}};
-  SwigluEpilogue epi{ea, eg, eu, out, gate, sig, F};
-  return rq::launch_int8_gemm<2>(x, b, M, F, K, epi, static_cast<cudaStream_t>(stream));
+  SwigluEpilogue epi{ea, eg, eu, out, gate, sig, M, F};
+  return rq::launch_int8_gemm<2>(x, b, M, F, K, G, epi, static_cast<cudaStream_t>(stream));
 }

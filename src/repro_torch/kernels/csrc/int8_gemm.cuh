@@ -35,6 +35,14 @@
 //     eight ways, and the partial sums meet in shared memory (dp4a on
 //     4x4-byte transposes of B).
 // NB (1 or 2) is the number of B matrices streamed against one A tile.
+//
+// Grouped launches (the MoE experts' products, which the reference
+// computes as XLA batched dots: src/repro/models/moe.py::
+// _fused_expert_mlp): G independent problems of the same shape laid out
+// back to back, A (G, M, K) and each B (G, K, N), with the group as
+// blockIdx.z.  A block offsets its operands by its group and passes the
+// group to the epilogue, which indexes per-group exponents and output
+// rows; one launch covers every group.  G = 1 is the plain product.
 #pragma once
 
 #include "common.cuh"
@@ -152,6 +160,10 @@ __global__ void __launch_bounds__(TC_THREADS) gemm_tc(const int8_t* __restrict__
   constexpr int BM = 32 * MT, BN = TC_ROW / NB, WN = BN / 4, NG = WN / 16;
   constexpr int STAGE = BM * TC_BK + TC_B_BYTES;
   extern __shared__ __align__(128) int8_t tc_smem[];
+  const int z = blockIdx.z;  // the group
+  A += static_cast<size_t>(z) * M * K;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) B.b[b] += static_cast<size_t>(z) * K * N;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, wm = warp / 4, wn = warp % 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int nk = (K + TC_BK - 1) / TC_BK;
@@ -220,7 +232,7 @@ __global__ void __launch_bounds__(TC_THREADS) gemm_tc(const int8_t* __restrict__
 #pragma unroll
       for (int nt = 0; nt < 2 * NG; ++nt) {
         const int n = n0 + wn * WN + (nt / 2) * 16 + 4 * (lane % 4) + 2 * (e % 2) + nt % 2;
-        if (m < M && n < N) epi(m, n, acc[0][mt][nt][e], acc[NB - 1][mt][nt][e]);
+        if (m < M && n < N) epi(z, m, n, acc[0][mt][nt][e], acc[NB - 1][mt][nt][e]);
       }
     }
 }
@@ -231,6 +243,10 @@ template <int NB, class Epi>
 __global__ void __launch_bounds__(256) gemm_skinny(const int8_t* __restrict__ A, BMats<NB> B,
                                                    int M, int N, int K, Epi epi) {
   __shared__ int red[NB][SKINNY_WARPS][SKINNY_MAXM][SKINNY_COLS];
+  const int z = blockIdx.z;  // the group
+  A += static_cast<size_t>(z) * M * K;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) B.b[b] += static_cast<size_t>(z) * K * N;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cq = lane & 7, kq = lane >> 3;  // column quad, k quad
   const int n = blockIdx.x * SKINNY_COLS + cq * 4;
@@ -311,29 +327,30 @@ __global__ void __launch_bounds__(256) gemm_skinny(const int8_t* __restrict__ A,
 #pragma unroll
       for (int w = 0; w < SKINNY_WARPS; ++w) s[b] += red[b][w][m][c];
     }
-    epi(m, nn, s[0], s[NB - 1]);
+    epi(z, m, nn, s[0], s[NB - 1]);
   }
 }
 
 template <int NB, int MT, class Epi>
-int launch_tc(const int8_t* A, BMats<NB> B, int M, int N, int K, Epi epi, bool vec,
+int launch_tc(const int8_t* A, BMats<NB> B, int M, int N, int K, int G, Epi epi, bool vec,
               cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(gemm_tc<NB, MT, Epi>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          tc_smem_bytes(MT));
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int BN = TC_ROW / NB, BM = 32 * MT;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, G);
   gemm_tc<NB, MT, Epi><<<grid, TC_THREADS, tc_smem_bytes(MT), stream>>>(A, B, M, N, K, epi, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch either shape on `stream`; returns the first CUDA error
+// launch either shape on `stream` for G groups (epi(z, m, n, acc, acc2)
+// sees group z's row m); returns the first CUDA error
 template <int NB, class Epi>
-int launch_int8_gemm(const int8_t* A, BMats<NB> B, int M, int N, int K, Epi epi,
+int launch_int8_gemm(const int8_t* A, BMats<NB> B, int M, int N, int K, int G, Epi epi,
                      cudaStream_t stream) {
   if (M <= SKINNY_MAXM) {
-    dim3 grid((N + SKINNY_COLS - 1) / SKINNY_COLS);
+    dim3 grid((N + SKINNY_COLS - 1) / SKINNY_COLS, 1, G);
     gemm_skinny<NB, Epi><<<grid, 256, 0, stream>>>(A, B, M, N, K, epi);
     return static_cast<int>(cudaGetLastError());
   }
@@ -342,10 +359,11 @@ int launch_int8_gemm(const int8_t* A, BMats<NB> B, int M, int N, int K, Epi epi,
   for (int b = 0; b < NB; ++b) vec = vec && aligned(B.b[b]);
   // 128-row blocks where they give every SM two blocks and (K1) K is deep
   // enough to pay for them; else 64-row blocks
-  const long blocks = static_cast<long>((N + TC_ROW / NB - 1) / (TC_ROW / NB)) * ((M + 127) / 128);
+  const long blocks =
+      static_cast<long>((N + TC_ROW / NB - 1) / (TC_ROW / NB)) * ((M + 127) / 128) * G;
   if (blocks >= 2 * 132 && (NB == 2 || K >= 4096))
-    return launch_tc<NB, 4>(A, B, M, N, K, epi, vec, stream);
-  return launch_tc<NB, 2>(A, B, M, N, K, epi, vec, stream);
+    return launch_tc<NB, 4>(A, B, M, N, K, G, epi, vec, stream);
+  return launch_tc<NB, 2>(A, B, M, N, K, G, epi, vec, stream);
 }
 
 }  // namespace rq

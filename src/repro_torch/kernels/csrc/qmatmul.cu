@@ -17,6 +17,11 @@
 // as a dp4a matrix-vector product that streams B once; the epilogue runs
 // on the accumulator registers, with the exponents read from device
 // memory so that no host sync is needed.
+//
+// The export runs G such products of one shape in one launch, the group
+// on blockIdx.z (int8_gemm.cuh): G = 1 is K1; G = E is the MoE experts'
+// down projection (not a TPU kernel: the reference computes it as an XLA
+// batched dot in src/repro/models/moe.py::_fused_expert_mlp).
 #include "int8_gemm.cuh"
 
 namespace {
@@ -25,11 +30,11 @@ struct QmmEpilogue {
   const int32_t* ea;
   const int32_t* eb;
   void* out;
-  int N;
+  int M, N;
   int mode;
-  __device__ __forceinline__ void operator()(int m, int n, int acc, int) const {
-    const int32_t e = rq::wadd(*ea, eb[n]);
-    const size_t idx = static_cast<size_t>(m) * N + n;
+  __device__ __forceinline__ void operator()(int z, int m, int n, int acc, int) const {
+    const int32_t e = rq::wadd(*ea, eb[static_cast<size_t>(z) * N + n]);
+    const size_t idx = (static_cast<size_t>(z) * M + m) * N + n;
     if (mode == 0) {
       static_cast<float*>(out)[idx] = __fmul_rn(__int2float_rn(acc), rq::pow2f(e));
     } else if (mode == 1) {
@@ -53,12 +58,12 @@ struct QmmEpilogue {
 
 REPRO_DEFINE_ERROR_STRING
 
-// A (M,K) int8, B (K,N) int8, ea (1,) int32, eb (N,) int32 on the device;
-// out (M,N) f32 (mode 0) or int32.  K and N multiples of 4.
+// A (G,M,K) int8, B (G,K,N) int8, ea (1,) int32, eb (G,N) int32 on the
+// device; out (G,M,N) f32 (mode 0) or int32.  K and N multiples of 4.
 REPRO_EXPORT int repro_qmatmul(const int8_t* A, const int8_t* B, const int32_t* ea,
-                               const int32_t* eb, void* out, int M, int N, int K, int mode,
+                               const int32_t* eb, void* out, int G, int M, int N, int K, int mode,
                                void* stream) {
   rq::BMats<1> b{{B}};
-  QmmEpilogue epi{ea, eb, out, N, mode};
-  return rq::launch_int8_gemm<1>(A, b, M, N, K, epi, static_cast<cudaStream_t>(stream));
+  QmmEpilogue epi{ea, eb, out, M, N, mode};
+  return rq::launch_int8_gemm<1>(A, b, M, N, K, G, epi, static_cast<cudaStream_t>(stream));
 }

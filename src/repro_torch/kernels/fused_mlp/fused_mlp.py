@@ -14,6 +14,14 @@ registers.  The down-projection stays unfused (one more K1 call).
 On the H100 the decode shapes are bound by reading Wg and Wu (bytes),
 prefill by int8 operations; the CORDIC epilogue costs a few hundred
 integer operations per output, far below either.
+
+:func:`fused_swiglu_grouped` is the same contract for G hidden stages of
+one shape in one launch — ``x_q`` (G, M, K), ``wg_q``/``wu_q`` (G, K,
+F), one ``ea``, ``eg``/``eu`` (G, F) — the MoE experts' gate and up
+products with this epilogue, which the reference computes as XLA batched
+dots and :func:`swiglu_body_q16` (``src/repro/models/moe.py::
+_fused_expert_mlp``; not a TPU kernel).  The kernel is K2's with the
+group as ``blockIdx.z``; :func:`fused_swiglu` is its one-group case.
 """
 
 from __future__ import annotations
@@ -26,12 +34,12 @@ from repro_torch.compat import check_launch, current_stream, kernel_function, pt
 from repro_torch.core.cordic import sigmoid_q16_body
 from repro_torch.kernels.qmatmul.qmatmul import MAX_K, _acc_exact
 
-__all__ = ["swiglu_body_q16", "fused_swiglu", "fused_swiglu_plain"]
+__all__ = ["swiglu_body_q16", "fused_swiglu", "fused_swiglu_plain", "fused_swiglu_grouped"]
 
 _RAW_MAX = (1 << 31) - 1
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: repro_fused_swiglu(x, wg, wu, ea, eg, eu, out, gate, sig, M, F, K, stream)
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
+#: repro_fused_swiglu(x, wg, wu, ea, eg, eu, out, gate, sig, G, M, F, K, stream)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 
 
 def swiglu_body_q16(acc_g, acc_u, e_g, e_u, *, return_parts: bool = False):
@@ -63,13 +71,64 @@ def swiglu_body_q16(acc_g, acc_u, e_g, e_u, *, return_parts: bool = False):
 
 
 def fused_swiglu_plain(x_q, wg_q, wu_q, ea, eg, eu, *, return_parts: bool = False):
-    """The plain PyTorch version of K2 (any device)."""
+    """The plain PyTorch version of K2 (any device).  With a leading group
+    axis — ``x_q`` (G, M, K), ``wg_q``/``wu_q`` (G, K, F), ``eg``/``eu``
+    (G, F) — it is :func:`fused_swiglu_grouped`'s, group by group."""
     acc_g = _acc_exact(x_q, wg_q).to(torch.int32)
     acc_u = _acc_exact(x_q, wu_q).to(torch.int32)
     ea = ea.to(torch.int32).reshape(())
-    e_g = ea + eg.to(torch.int32).reshape(-1)
-    e_u = ea + eu.to(torch.int32).reshape(-1)
+    e_shape = wg_q.shape[:-2] + (1, wg_q.shape[-1])
+    e_g = ea + eg.to(torch.int32).reshape(e_shape)
+    e_u = ea + eu.to(torch.int32).reshape(e_shape)
     return swiglu_body_q16(acc_g, acc_u, e_g, e_u, return_parts=return_parts)
+
+
+def _run(wrapper, x_q, wg_q, wu_q, ea, eg, eu, return_parts):
+    """Check G hidden stages — ``x_q`` (G, M, K), ``wg_q``/``wu_q`` (G, K,
+    F), ``eg``/``eu`` (G, F) — and run them: the plain version for a CPU
+    tensor, ONE K2 launch for all G groups for a CUDA tensor (counted on
+    ``wrapper.launches``), or raise."""
+    name = wrapper.__name__
+    if x_q.dtype != torch.int8 or wg_q.dtype != torch.int8 or wu_q.dtype != torch.int8:
+        raise TypeError(f"{name}: int8 operands required")
+    if x_q.ndim != 3 or wg_q.ndim != 3 or wg_q.shape != wu_q.shape \
+            or x_q.shape[0] != wg_q.shape[0] or x_q.shape[2] != wg_q.shape[1]:
+        raise ValueError(f"{name}: shapes {tuple(x_q.shape)} x {tuple(wg_q.shape)} / "
+                         f"{tuple(wu_q.shape)}")
+    G, M, K = x_q.shape
+    F = wg_q.shape[2]
+    if K > MAX_K:
+        raise ValueError(f"{name}: K={K} > 2**17, int32 accumulation would not be exact")
+    if ea.numel() != 1 or tuple(eg.shape) != (G, F) or tuple(eu.shape) != (G, F):
+        raise ValueError(f"{name}: exponent shapes do not match (G, F) = ({G}, {F})")
+    if len({t.device for t in (x_q, wg_q, wu_q, ea, eg, eu)}) != 1:
+        raise ValueError(f"{name}: operands on several devices")
+    if x_q.device.type == "cpu":
+        return fused_swiglu_plain(x_q, wg_q, wu_q, ea, eg, eu, return_parts=return_parts)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x_q.device}")
+    for arg, t in (("x_q", x_q), ("wg_q", wg_q), ("wu_q", wu_q), ("eg", eg), ("eu", eu)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if any(t.dtype != torch.int32 for t in (ea, eg, eu)):
+        raise TypeError(f"{name}: int32 exponents required")
+    if K % 4 or F % 4:
+        raise ValueError(f"{name}: the kernel needs K and F multiples of 4 (K={K}, F={F})")
+    dev = x_q.device
+    out = torch.empty((G, M, F), dtype=torch.float32, device=dev)
+    gate = sig = None
+    if return_parts:
+        gate = torch.empty((G, M, F), dtype=torch.int32, device=dev)
+        sig = torch.empty((G, M, F), dtype=torch.int32, device=dev)
+    if G and M and F:
+        ea1 = ea.reshape(1).contiguous()
+        rc = kernel_function("fused_mlp", "repro_fused_swiglu", _ARGTYPES)(
+            ptr(x_q), ptr(wg_q), ptr(wu_q), ptr(ea1), ptr(eg), ptr(eu),
+            ptr(out), ptr(gate), ptr(sig), G, M, F, K, current_stream(x_q),
+        )
+        check_launch("fused_mlp", rc, name)
+        wrapper.launches += 1
+    return (out, gate, sig) if return_parts else out
 
 
 def fused_swiglu(x_q: torch.Tensor, wg_q: torch.Tensor, wu_q: torch.Tensor, ea: torch.Tensor,
@@ -77,45 +136,27 @@ def fused_swiglu(x_q: torch.Tensor, wg_q: torch.Tensor, wu_q: torch.Tensor, ea: 
     """x_q (M, K) int8, wg_q/wu_q (K, F) int8, ea one int32, eg/eu (F,)
     int32 -> (M, F) f32 ``silu(x@Wg) * (x@Wu)`` through K2 — or
     ``(out, gate_q16, sig)`` with ``return_parts``."""
-    if x_q.dtype != torch.int8 or wg_q.dtype != torch.int8 or wu_q.dtype != torch.int8:
-        raise TypeError("fused_swiglu: int8 operands required")
-    if x_q.ndim != 2 or wg_q.ndim != 2 or wg_q.shape != wu_q.shape or x_q.shape[1] != wg_q.shape[0]:
+    if x_q.ndim != 2 or wg_q.ndim != 2 or wu_q.ndim != 2:
         raise ValueError(
             f"fused_swiglu: shapes {tuple(x_q.shape)} x {tuple(wg_q.shape)} / {tuple(wu_q.shape)}")
-    M, K = x_q.shape
-    F = wg_q.shape[1]
-    if K > MAX_K:
-        raise ValueError(f"fused_swiglu: K={K} > 2**17, int32 accumulation would not be exact")
-    if ea.numel() != 1 or eg.numel() != F or eu.numel() != F:
-        raise ValueError("fused_swiglu: exponent shapes do not match F")
-    if len({t.device for t in (x_q, wg_q, wu_q, ea, eg, eu)}) != 1:
-        raise ValueError("fused_swiglu: operands on several devices")
-    if x_q.device.type == "cpu":
-        return fused_swiglu_plain(x_q, wg_q, wu_q, ea, eg, eu, return_parts=return_parts)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"fused_swiglu: unsupported device {x_q.device}")
-    for name, t in (("x_q", x_q), ("wg_q", wg_q), ("wu_q", wu_q), ("eg", eg), ("eu", eu)):
-        if not t.is_contiguous():
-            raise ValueError(f"fused_swiglu: {name} must be contiguous")
-    if any(t.dtype != torch.int32 for t in (ea, eg, eu)):
-        raise TypeError("fused_swiglu: int32 exponents required")
-    if K % 4 or F % 4:
-        raise ValueError(f"fused_swiglu: the kernel needs K and F multiples of 4 (K={K}, F={F})")
-    dev = x_q.device
-    out = torch.empty((M, F), dtype=torch.float32, device=dev)
-    gate = sig = None
+    res = _run(fused_swiglu, x_q[None], wg_q[None], wu_q[None], ea,
+               eg.reshape(1, eg.numel()), eu.reshape(1, eu.numel()), return_parts)
     if return_parts:
-        gate = torch.empty((M, F), dtype=torch.int32, device=dev)
-        sig = torch.empty((M, F), dtype=torch.int32, device=dev)
-    if M and F:
-        ea1 = ea.reshape(1).contiguous()
-        rc = kernel_function("fused_mlp", "repro_fused_swiglu", _ARGTYPES)(
-            ptr(x_q), ptr(wg_q), ptr(wu_q), ptr(ea1), ptr(eg), ptr(eu),
-            ptr(out), ptr(gate), ptr(sig), M, F, K, current_stream(x_q),
-        )
-        check_launch("fused_mlp", rc, "fused_swiglu")
-        fused_swiglu.launches += 1
-    return (out, gate, sig) if return_parts else out
+        return tuple(None if t is None else t[0] for t in res)
+    return res[0]
 
 
 fused_swiglu.launches = 0
+
+
+def fused_swiglu_grouped(x_q: torch.Tensor, wg_q: torch.Tensor, wu_q: torch.Tensor,
+                         ea: torch.Tensor, eg: torch.Tensor, eu: torch.Tensor, *,
+                         return_parts: bool = False):
+    """x_q (G, M, K) int8, wg_q/wu_q (G, K, F) int8, ea one int32, eg/eu
+    (G, F) int32 -> (G, M, F) f32: K2's contract for each group, one
+    launch for all of them — or ``(out, gate_q16, sig)`` with
+    ``return_parts``."""
+    return _run(fused_swiglu_grouped, x_q, wg_q, wu_q, ea, eg, eu, return_parts)
+
+
+fused_swiglu_grouped.launches = 0

@@ -26,6 +26,14 @@ both shapes are bit-exact against :func:`qmatmul_plain`.
 
 :func:`qmatmul` is the wrapper: the plain PyTorch version for a CPU
 tensor, the kernel for a CUDA tensor (or it raises).
+
+:func:`qmatmul_grouped` is the same contract for G products of one
+shape in one launch — ``a_q`` (G, M, K), ``b_q`` (G, K, N), one
+``ea``, ``eb`` (G, N) — the MoE experts' down projection, which the
+reference computes as an XLA batched dot
+(``src/repro/models/moe.py::_fused_expert_mlp``; not a TPU kernel).
+The kernel is K1's with the group as ``blockIdx.z``; :func:`qmatmul` is
+its one-group case.
 """
 
 from __future__ import annotations
@@ -36,12 +44,12 @@ import torch
 
 from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
 
-__all__ = ["EPILOGUES", "qmatmul", "qmatmul_plain", "MAX_K"]
+__all__ = ["EPILOGUES", "qmatmul", "qmatmul_plain", "qmatmul_grouped", "MAX_K"]
 
 EPILOGUES = ("float", "q16", "int32")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: repro_qmatmul(A, B, ea, eb, out, M, N, K, mode, stream)
-_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+#: repro_qmatmul(A, B, ea, eb, out, G, M, N, K, mode, stream)
+_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 #: int32 accumulation of int8 products is exact up to this depth
 MAX_K = 1 << 17
 
@@ -49,12 +57,13 @@ MAX_K = 1 << 17
 def _acc_exact(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
     """Exact int8 product as int64: every partial sum is an integer
     below 2**53, so a float64 matmul is exact in any summation order
-    (and runs on the card, where integer matmuls do not)."""
+    (and runs on the card, where integer matmuls do not).  3-D operands
+    multiply group by group."""
     return (a_q.to(torch.float64) @ b_q.to(torch.float64)).to(torch.int64)
 
 
 def _epilogue_plain(acc: torch.Tensor, e: torch.Tensor, epilogue: str) -> torch.Tensor:
-    """``acc`` int32 (M, N), ``e`` int32 broadcastable (N,)."""
+    """``acc`` int32 (..., M, N), ``e`` int32 broadcastable against it."""
     if epilogue == "int32":
         return acc
     if epilogue == "float":
@@ -69,29 +78,60 @@ def _epilogue_plain(acc: torch.Tensor, e: torch.Tensor, epilogue: str) -> torch.
 
 
 def qmatmul_plain(a_q, b_q, ea, eb, epilogue: str = "float") -> torch.Tensor:
-    """The plain PyTorch version of K1 (same contract, any device)."""
+    """The plain PyTorch version of K1 (same contract, any device).  With
+    a leading group axis — (G, M, K) x (G, K, N), ``eb`` (G, N) — it is
+    :func:`qmatmul_grouped`'s, group by group."""
     acc = _acc_exact(a_q, b_q).to(torch.int32)  # wraps like the int32 accumulator
-    e = ea.to(torch.int32).reshape(()) + eb.to(torch.int32).reshape(-1)
+    N = b_q.shape[-1]
+    e = ea.to(torch.int32).reshape(()) + eb.to(torch.int32).reshape(b_q.shape[:-2] + (1, N))
     return _epilogue_plain(acc, e, epilogue)
 
 
-def _check(a_q, b_q, ea, eb, epilogue):
+def _run(wrapper, a_q, b_q, ea, eb, epilogue):
+    """Check a (G, M, K) x (G, K, N) product and run it: the plain
+    version for a CPU tensor, ONE K1 launch for all G groups for a CUDA
+    tensor (counted on ``wrapper.launches``), or raise."""
+    name = wrapper.__name__
     if epilogue not in EPILOGUES:
-        raise ValueError(f"qmatmul: epilogue {epilogue!r} not in {EPILOGUES}")
+        raise ValueError(f"{name}: epilogue {epilogue!r} not in {EPILOGUES}")
     if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
-        raise TypeError(f"qmatmul: int8 operands required, got {a_q.dtype} x {b_q.dtype}")
-    if a_q.ndim != 2 or b_q.ndim != 2 or a_q.shape[1] != b_q.shape[0]:
-        raise ValueError(f"qmatmul: shapes {tuple(a_q.shape)} x {tuple(b_q.shape)}")
-    M, K = a_q.shape
-    N = b_q.shape[1]
+        raise TypeError(f"{name}: int8 operands required, got {a_q.dtype} x {b_q.dtype}")
+    if a_q.ndim != 3 or b_q.ndim != 3 or a_q.shape[0] != b_q.shape[0] \
+            or a_q.shape[2] != b_q.shape[1]:
+        raise ValueError(f"{name}: shapes {tuple(a_q.shape)} x {tuple(b_q.shape)}")
+    G, M, K = a_q.shape
+    N = b_q.shape[2]
     if K > MAX_K:
-        raise ValueError(f"qmatmul: K={K} > 2**17, int32 accumulation would not be exact")
-    if ea.numel() != 1 or eb.numel() != N:
-        raise ValueError(f"qmatmul: exponents {tuple(ea.shape)}, {tuple(eb.shape)} for N={N}")
+        raise ValueError(f"{name}: K={K} > 2**17, int32 accumulation would not be exact")
+    if ea.numel() != 1 or tuple(eb.shape) != (G, N):
+        raise ValueError(f"{name}: exponents {tuple(ea.shape)}, {tuple(eb.shape)} for "
+                         f"(G, N) = ({G}, {N})")
     devs = {t.device for t in (a_q, b_q, ea, eb)}
     if len(devs) != 1:
-        raise ValueError(f"qmatmul: operands on several devices {devs}")
-    return M, K, N
+        raise ValueError(f"{name}: operands on several devices {devs}")
+    if a_q.device.type == "cpu":
+        return qmatmul_plain(a_q, b_q, ea, eb, epilogue)
+    if a_q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {a_q.device}")
+    for arg, t in (("a_q", a_q), ("b_q", b_q), ("eb", eb)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if ea.dtype != torch.int32 or eb.dtype != torch.int32:
+        raise TypeError(f"{name}: int32 exponents required")
+    if K % 4 or N % 4:
+        raise ValueError(f"{name}: the kernel needs K and N multiples of 4 (K={K}, N={N})")
+    out = torch.empty((G, M, N), dtype=torch.float32 if epilogue == "float" else torch.int32,
+                      device=a_q.device)
+    if G == 0 or M == 0 or N == 0:
+        return out
+    ea1 = ea.reshape(1).contiguous()
+    rc = kernel_function("qmatmul", "repro_qmatmul", _ARGTYPES)(
+        ptr(a_q), ptr(b_q), ptr(ea1), ptr(eb), ptr(out), G, M, N, K,
+        EPILOGUES.index(epilogue), current_stream(a_q),
+    )
+    check_launch("qmatmul", rc, name)
+    wrapper.launches += 1
+    return out
 
 
 def qmatmul(a_q: torch.Tensor, b_q: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor,
@@ -103,30 +143,20 @@ def qmatmul(a_q: torch.Tensor, b_q: torch.Tensor, ea: torch.Tensor, eb: torch.Te
     device as the operands — the kernel reads them there, so no host
     synchronisation is needed.
     """
-    M, K, N = _check(a_q, b_q, ea, eb, epilogue)
-    if a_q.device.type == "cpu":
-        return qmatmul_plain(a_q, b_q, ea, eb, epilogue)
-    if a_q.device.type != "cuda":
-        raise ValueError(f"qmatmul: unsupported device {a_q.device}")
-    for name, t in (("a_q", a_q), ("b_q", b_q), ("eb", eb)):
-        if not t.is_contiguous():
-            raise ValueError(f"qmatmul: {name} must be contiguous")
-    if ea.dtype != torch.int32 or eb.dtype != torch.int32:
-        raise TypeError("qmatmul: int32 exponents required")
-    if K % 4 or N % 4:
-        raise ValueError(f"qmatmul: the kernel needs K and N multiples of 4 (K={K}, N={N})")
-    out = torch.empty((M, N), dtype=torch.float32 if epilogue == "float" else torch.int32,
-                      device=a_q.device)
-    if M == 0 or N == 0:
-        return out
-    ea1 = ea.reshape(1).contiguous()
-    rc = kernel_function("qmatmul", "repro_qmatmul", _ARGTYPES)(
-        ptr(a_q), ptr(b_q), ptr(ea1), ptr(eb), ptr(out), M, N, K,
-        EPILOGUES.index(epilogue), current_stream(a_q),
-    )
-    check_launch("qmatmul", rc, "qmatmul")
-    qmatmul.launches += 1
-    return out
+    if a_q.ndim != 2 or b_q.ndim != 2:
+        raise ValueError(f"qmatmul: shapes {tuple(a_q.shape)} x {tuple(b_q.shape)}")
+    return _run(qmatmul, a_q[None], b_q[None], ea, eb.reshape(1, eb.numel()), epilogue)[0]
 
 
 qmatmul.launches = 0
+
+
+def qmatmul_grouped(a_q: torch.Tensor, b_q: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor,
+                    epilogue: str = "float") -> torch.Tensor:
+    """(G, M, K) int8 x (G, K, N) int8 -> (G, M, N) f32 or int32: K1's
+    contract for each group, one launch for all of them.  ``ea``: one
+    int32 exponent shared by the groups; ``eb``: (G, N) int32."""
+    return _run(qmatmul_grouped, a_q, b_q, ea, eb, epilogue)
+
+
+qmatmul_grouped.launches = 0

@@ -10,8 +10,17 @@ softcap.  Prefill attention runs kernel K4 (``kernels.flashattn``, the
 function of ``chunked_attention``, score softcap included);
 ``decode_attention`` and ``decode_attention_multi`` stay plain PyTorch,
 as the reference has no Pallas kernel for them.  Score capping is f32 on
-every rung (the reference's policy).  MLA and the int8 KV cache wait for
-later slices (ROADMAP.md queue 1 items 10 and 7b).
+every rung (the reference's policy).  MLA waits for a later slice
+(ROADMAP.md queue 1 item 10).
+
+The int8 KV cache (``init_attn_cache(quantized=True)``, the reference's
+Q-format cache): int8 ``k`` / ``v`` payloads with an int32 power-of-two
+exponent per (row, kv head) in ``k_exp`` / ``v_exp`` (B, L, KV),
+quantized by :func:`_q8` (``core.quantization.quantize_pow2`` with kept
+axes, the one grid definition).  Prefill still attends the pass's own
+float k / v (K4) and stores them quantized; decode and segment
+attention fold the exponents into the scores and the probabilities
+(``decode_attention(k_exp=, v_exp=)``), as the reference does.
 
 Caches are updated IN PLACE (the reference returns new arrays): a
 prefill writes rows ``[0, S)`` of the cache it is given, a decode one
@@ -34,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.compat import resolve_device
+from repro_torch.core.quantization import quantize_pow2
 from repro_torch.kernels.flashattn import NEG_INF, flash_attention
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import Spec, apply_rope, attn_norm_spec, pdot, rms_norm, rope_tables
@@ -61,15 +71,33 @@ def attn_specs(cfg: ModelConfig) -> dict:
 
 
 def init_attn_cache(cfg: ModelConfig, layer: LayerSpec, batch: int, max_len: int,
-                    dtype=torch.float32, device=None) -> dict:
+                    dtype=torch.float32, device=None, quantized: bool = False) -> dict:
+    """``quantized``: int8 k / v payloads with int32 ``k_exp`` / ``v_exp``
+    (B, L, KV), one power-of-two exponent per row and kv head."""
     device = resolve_device(device)
     L = min(layer.window, max_len) if layer.window else max_len
     kv, hd = cfg.n_kv_heads, cfg.head_dim
-    return {
-        "k": torch.zeros((batch, L, kv, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, L, kv, hd), dtype=dtype, device=device),
+    pdt = torch.int8 if quantized else dtype
+    out = {
+        "k": torch.zeros((batch, L, kv, hd), dtype=pdt, device=device),
+        "v": torch.zeros((batch, L, kv, hd), dtype=pdt, device=device),
         "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
     }
+    if quantized:
+        out["k_exp"] = torch.zeros((batch, L, kv), dtype=torch.int32, device=device)
+        out["v_exp"] = torch.zeros((batch, L, kv), dtype=torch.int32, device=device)
+    return out
+
+
+def _q8(x: torch.Tensor, axes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 KV-cache quantization on the pow2 grid: one exponent per kept
+    slice, ``axes`` (head_dim) reduced.  Returns ``(int8 payload,
+    exponents)`` with the reduced axes squeezed away (the cache's
+    ``k_exp`` / ``v_exp`` layout)."""
+    red = {a % x.ndim for a in axes}
+    keep = tuple(i for i in range(x.ndim) if i not in red)
+    qt = quantize_pow2(x, bits=8, axis=keep)
+    return qt.q, qt.exp.reshape([x.shape[i] for i in keep])
 
 
 def reset_attn_cache_slot(cache: dict, slot) -> dict:
@@ -97,10 +125,13 @@ def truncate_attn_cache_slot(cache: dict, slot, keep_pos) -> dict:
     return cache
 
 
-def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None, cap=None):
+def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None, cap=None,
+                     k_exp=None, v_exp=None):
     """Single-token decode: q (B,1,H,D) vs cache (B,L,KV,D); kp (B,L)
     slot positions (-1 = unwritten).  Plain PyTorch, f32 scores, capped
-    as ``cap * tanh(s / cap)`` before the mask when ``cap`` is given."""
+    as ``cap * tanh(s / cap)`` before the mask when ``cap`` is given.
+    An int8 cache's exponents (B,L,KV) scale the scores (``k_exp``) and
+    the probabilities (``v_exp``) by powers of two."""
     B, _, H, Dq = q.shape
     KV = k_cache.shape[2]
     G = H // KV
@@ -110,6 +141,8 @@ def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None, cap=No
     scale = torch.tensor(1.0 / math.sqrt(Dq), dtype=q.dtype).item()
     qr = (q[:, 0] * scale).reshape(B, KV, G, Dq)
     s = torch.einsum("bkgd,blkd->bkgl", qr.to(torch.float32), k_cache.to(torch.float32))
+    if k_exp is not None:
+        s = s * torch.exp2(k_exp.to(torch.float32)).transpose(1, 2)[:, :, None, :]
     if cap is not None:
         s = cap * torch.tanh(s / cap)
     qp = q_position[:, None, None, None]
@@ -119,22 +152,28 @@ def decode_attention(q, k_cache, v_cache, kp, *, q_position, window=None, cap=No
         valid = valid & (kpb > qp - window)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if v_exp is not None:
+        p = p * torch.exp2(v_exp.to(torch.float32)).transpose(1, 2)[:, :, None, :]
     out = torch.einsum("bkgl,blkd->bkgd", p, v_cache.to(torch.float32))
     return out.reshape(B, 1, H, -1).to(q.dtype)
 
 
-def decode_attention_multi(q, k_cache, v_cache, kp, *, q_positions, window=None, cap=None):
+def decode_attention_multi(q, k_cache, v_cache, kp, *, q_positions, window=None, cap=None,
+                           k_exp=None, v_exp=None):
     """Segment decode: S queries against a cache (the speculative-verify
     / chunked-continuation path).  q (B,S,H,D) vs cache (B,L,KV,D); kp
     (B,L) slot positions (-1 = unwritten); q_positions (B,S).  Each query
     masks keys by its OWN position, so within-segment causality holds
     after the whole segment's k/v are in the cache.  Plain PyTorch, f32
-    scores (q is scaled in f32, as the reference does here)."""
+    scores (q is scaled in f32, as the reference does here); ``k_exp`` /
+    ``v_exp`` as in :func:`decode_attention`."""
     B, S, H, Dq = q.shape
     KV = k_cache.shape[2]
     G = H // KV
     qr = (q.to(torch.float32) * (1.0 / math.sqrt(Dq))).reshape(B, S, KV, G, Dq)
     s = torch.einsum("bskgd,blkd->bkgsl", qr, k_cache.to(torch.float32))
+    if k_exp is not None:
+        s = s * torch.exp2(k_exp.to(torch.float32)).transpose(1, 2)[:, :, None, None, :]
     if cap is not None:
         s = cap * torch.tanh(s / cap)
     qp = q_positions[:, None, None, :, None]                   # (B,1,1,S,1)
@@ -144,6 +183,8 @@ def decode_attention_multi(q, k_cache, v_cache, kp, *, q_positions, window=None,
         valid = valid & (kpb > qp - window)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if v_exp is not None:
+        p = p * torch.exp2(v_exp.to(torch.float32)).transpose(1, 2)[:, :, None, None, :]
     out = torch.einsum("bkgsl,blkd->bskgd", p, v_cache.to(torch.float32))
     return out.reshape(B, S, H, -1).to(q.dtype)
 
@@ -154,9 +195,8 @@ def _segment_attention(cache: dict, q, k, v, positions, layer: LayerSpec, cfg: M
     (the reference's segment path).  Full attention writes all S rows,
     then scores the S queries in one batch; a sliding window interleaves
     store and query per position, so that a write that wraps the rolling
-    buffer cannot hide a row an earlier query's window still covers."""
-    if "k_exp" in cache:
-        raise NotImplementedError("int8 KV cache: ROADMAP.md queue 1 item 7b")
+    buffer cannot hide a row an earlier query's window still covers.  An
+    int8 cache stores each row quantized (:func:`_rows`)."""
     B, S = positions.shape
     L = cache["k"].shape[1]
     if S > L:
@@ -165,30 +205,45 @@ def _segment_attention(cache: dict, q, k, v, positions, layer: LayerSpec, cfg: M
     lanes = torch.arange(B, device=positions.device)
     if seg_aux is not None:
         seg_aux["slot"] = slots
-        for name in ("k", "v", "pos"):
+        for name in cache:
             seg_aux[name] = cache[name][lanes[:, None], slots]
+    rows = _rows(cache, k, v, positions)
+    exps = {"k_exp": cache.get("k_exp"), "v_exp": cache.get("v_exp")}
 
     if layer.window is None:
         # the S slots are distinct (S <= L consecutive positions), so one
         # scatter writes what S single-row stores would
-        for name, new in (("k", k), ("v", v), ("pos", positions)):
+        for name, new in rows.items():
             cache[name][lanes[:, None], slots] = new.to(cache[name].dtype)
         return decode_attention_multi(q, cache["k"], cache["v"], cache["pos"],
-                                      q_positions=positions, cap=cfg.attn_softcap)
+                                      q_positions=positions, cap=cfg.attn_softcap, **exps)
     outs = []
     for s_i in range(S):
-        for name, new in (("k", k[:, s_i]), ("v", v[:, s_i]), ("pos", positions[:, s_i])):
-            cache[name][lanes, slots[:, s_i]] = new.to(cache[name].dtype)
+        for name, new in rows.items():
+            cache[name][lanes, slots[:, s_i]] = new[:, s_i].to(cache[name].dtype)
         outs.append(decode_attention(q[:, s_i:s_i + 1], cache["k"], cache["v"], cache["pos"],
                                      q_position=positions[:, s_i], window=layer.window,
-                                     cap=cfg.attn_softcap))
+                                     cap=cfg.attn_softcap, **exps))
     return torch.cat(outs, dim=1)
+
+
+def _rows(cache: dict, k, v, positions) -> dict:
+    """The cache rows of new k / v (B, S, KV, D) at ``positions`` (B, S):
+    float payloads, or on an int8 cache the payloads and their
+    per-(row, kv-head) exponents (quantizing each row alone, as the
+    reference's one-row stores do, gives the same bits)."""
+    if "k_exp" not in cache:
+        return {"k": k, "v": v, "pos": positions}
+    qk, ek = _q8(k, axes=(3,))
+    qv, ev = _q8(v, axes=(3,))
+    return {"k": qk, "v": qv, "pos": positions, "k_exp": ek, "v_exp": ev}
 
 
 def _prefill_cache(cache: dict, k, v, positions, window) -> dict:
     """Write a prefill segment starting at position 0 into ``cache`` in
     place: rows [0, S) for full attention; for a sliding window the
-    last ``L`` tokens, rolled so each lands at slot ``pos % L``."""
+    last ``L`` tokens, rolled so each lands at slot ``pos % L``.  An int8
+    cache gets the rows quantized, with their exponents."""
     S = k.shape[1]
     L = cache["k"].shape[1]
 
@@ -199,9 +254,8 @@ def _prefill_cache(cache: dict, k, v, positions, window) -> dict:
         else:
             buf.copy_(torch.roll(seg[:, S - L:], S % L, dims=1))
 
-    place(cache["k"], k)
-    place(cache["v"], v)
-    place(cache["pos"], positions)
+    for name, seg in _rows(cache, k, v, positions).items():
+        place(cache[name], seg)
     return cache
 
 
@@ -235,14 +289,13 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
         if prefill:
             cache = _prefill_cache(cache, k, v, positions, layer.window)
     elif S == 1:
-        if "k_exp" in cache:
-            raise NotImplementedError("int8 KV cache: ROADMAP.md queue 1 item 7b")
         L = cache["k"].shape[1]
         slot = (positions[:, 0] % L).to(torch.long)
         lanes = torch.arange(B, device=x.device)
-        for name, new in (("k", k[:, 0]), ("v", v[:, 0]), ("pos", positions[:, 0])):
+        rows = _rows(cache, k, v, positions)
+        for name, new in rows.items():
             buf = cache[name]
-            new = new.to(buf.dtype)
+            new = new[:, 0].to(buf.dtype)
             if lane_mask is not None:
                 # non-members keep their row (a select, not a boolean
                 # index: no device-to-host sync)
@@ -251,10 +304,17 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
             buf[lanes, slot] = new
         out = decode_attention(q, cache["k"], cache["v"], cache["pos"],
                                q_position=positions[:, 0], window=layer.window,
-                               cap=cfg.attn_softcap)
+                               cap=cfg.attn_softcap, k_exp=cache.get("k_exp"),
+                               v_exp=cache.get("v_exp"))
         if lane_mask is not None:
             G = cfg.n_heads // cfg.n_kv_heads
-            own = v.repeat_interleave(G, dim=2).to(out.dtype)
+            own = v
+            if "v_exp" in rows:
+                # its stored row, dequantized (p = 1 on it, an exact
+                # power-of-two scale)
+                own = rows["v"].to(torch.float32) * torch.exp2(
+                    rows["v_exp"].to(torch.float32))[..., None]
+            own = own.repeat_interleave(G, dim=2).to(out.dtype)
             out = torch.where(lane_mask.to(torch.bool)[:, None, None, None], out, own)
     else:
         out = _segment_attention(cache, q, k, v, positions, layer, cfg, seg_aux)

@@ -90,11 +90,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
-                device=None) -> dict:
+                device=None, quantized: bool = False) -> dict:
     """Stacked ``(n_periods, batch, ...)`` cache tree: k/v payloads 0,
-    position sentinel -1."""
+    position sentinel -1.  ``quantized``: the int8 KV cache (int8 k/v,
+    int32 ``k_exp`` / ``v_exp`` per row and kv head)."""
     dev = resolve_device(device)
-    one = init_period_cache(cfg, batch, max_len, dtype, dev)
+    one = init_period_cache(cfg, batch, max_len, dtype, dev, quantized=quantized)
     return tree_map(lambda x: x[None].repeat((cfg.n_periods,) + (1,) * x.ndim), one)
 
 
@@ -196,9 +197,10 @@ def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
     for i in range(cfg.n_periods):
         cache_i = None if caches is None else tree_map(lambda c: c[i], caches)
         aux_i = {} if seg_aux is not None else None
-        x, _ = period_forward(layer_params(params, i), x, cfg, positions=positions, mode=mode,
-                              caches=cache_i, prefill=prefill, lane_mask=lane_mask, rope=rope,
-                              seg_aux=aux_i)
+        # the MoE aux losses are training's (ROADMAP.md queue 1 item 12)
+        x, _, _ = period_forward(layer_params(params, i), x, cfg, positions=positions,
+                                 mode=mode, caches=cache_i, prefill=prefill,
+                                 lane_mask=lane_mask, rope=rope, seg_aux=aux_i, aux=False)
         per_period.append(aux_i)
     if seg_aux is not None:
         for key in per_period[0]:
@@ -259,7 +261,8 @@ def segment_step(params: dict, tokens: torch.Tensor, positions: torch.Tensor, ca
     in place, hold the whole segment; ``seg_aux`` holds, per period
     position ``pos{i}``, the slots the segment wrote (``slot`` (P,B,S))
     and their pre-segment rows (``k``, ``v`` (P,B,S,KV,D), ``pos``
-    (P,B,S)), from which :func:`commit_segment` rolls rejected rows back.
+    (P,B,S), and on an int8 cache ``k_exp``, ``v_exp`` (P,B,S,KV)), from
+    which :func:`commit_segment` rolls rejected rows back.
     The logits are ``_head``'s per rung (the FAST final softcap on K5),
     the RoPE tables built once from the (B,S) positions (one K3 launch
     on the FAST rung).  ``lane_mask`` (B,) zeroes non-member lanes at the
@@ -306,7 +309,7 @@ def commit_segment(caches: dict, seg_aux: dict, cfg: ModelConfig, *, keep_pos, k
         keep = torch.as_tensor(keep_pos, device=slots.device).reshape(1, B, 1)
         act = torch.as_tensor(active, device=slots.device).to(torch.bool).reshape(1, B, 1)
         rejected = (new_pos > keep) | ~act
-        for name in ("k", "v", "pos"):
+        for name in cache:
             buf = cache[name]
             cur = buf[per, lanes, slots]
             mask = rejected.reshape(rejected.shape + (1,) * (cur.ndim - 3))

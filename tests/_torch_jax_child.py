@@ -4,17 +4,39 @@ must be set before JAX starts, hence a process of its own), so every
 bf16 cast of the FAST rung rounds where the source says it does.
 
 Usage: XLA_FLAGS=--xla_allow_excess_precision=false \
-           python tests/_torch_jax_child.py OUT.npz [ARCH [segment|spec|paged]]
+           python tests/_torch_jax_child.py OUT.npz [ARCH [model|segment|spec|paged|moe|serve|qkv]]
 
-ARCH is ``deepseek_7b`` (default; tests/test_torch_model.py) or
-``gemma2_2b`` (tests/test_torch_gemma2.py).  Writes the smoke model's
-parameters and int8 weight payloads, and for each of the ``exact`` and
-``fast`` modes the prefill logits and caches, then the decode steps:
+ARCH is ``deepseek_7b`` (default; tests/test_torch_model.py),
+``gemma2_2b`` (tests/test_torch_gemma2.py) or, from the MoE slice,
+``command_r_35b``, ``granite_moe_3b_a800m`` or ``mixtral_8x22b``
+(tests/test_torch_families.py).  Writes the smoke model's parameters and
+int8 weight payloads, and for each of the ``exact`` and ``fast`` modes
+the prefill logits and caches, then the decode steps:
 
 * deepseek_7b: one decode of token 12 at position 11;
-* gemma2_2b: DECODE_STEPS greedy decode steps, each feeding the argmax
-  of the step before (``{mode}/tokens``), so the 8-row sliding-window
-  buffer wraps; logits of every step and the caches after the last.
+* the others: DECODE_STEPS greedy decode steps, each feeding the argmax
+  of the step before (``{mode}/tokens``), so gemma2's and mixtral's
+  8-row sliding-window buffers wrap; logits of every step and the caches
+  after the last.
+
+With ``moe`` (tests/test_torch_moe.py, tests/test_torch_families.py) it
+writes those records and also layer 0's ``moe_forward`` on MOE_X (a zero
+row included: uniform routing, tied probabilities) at every mode
+(``moe/{mode}/out``, ``moe/{mode}/aux``; FAST modes on the attached
+int8 weights), and the same on MOE_DROP_X at capacity factor MOE_DROP_CF,
+where tokens are dropped (``moe/drop/x``, ``moe/drop/{mode}/out``,
+``moe/drop/{mode}/aux``).  With ``serve`` (tests/test_torch_families.py) it writes
+instead the tokens of the reference test's static server
+(``serve/batched``: ``BatchedServer`` at ``f32``, one slot,
+BATCHED_PROMPT, 4 new tokens) and of PAGED_WORKLOAD through a paged
+``ContinuousBatchingServer`` (``serve/paged/tokens{i}``).  With ``qkv``
+(tests/test_torch_quantized_kv.py) it writes instead the reference's
+int8-KV test run (``qkv/{bf16,int8}/logits``: prefill and 4
+teacher-forced decodes at the default mode, parameters from
+``PRNGKey(7)``) and, on the FAST rung with attached weights, an int8
+cache after a two-lane prefill of SEG_PROMPT (``int8/c1``), one decode
+(``int8/c2``), a segment of SEG_TOKENS from ``c1`` (``int8/seg``) and
+its commit with keep_count 3, lane 1 inactive (``int8/commit``).
 
 With ``segment`` (tests/test_torch_segment.py) it writes instead an
 exact-rung two-lane prefill of SEG_PROMPT (``c1/...``), and from that
@@ -80,6 +102,17 @@ SPEC_K = 3
 SPEC_MAX_LEN = 64
 SPEC_MAX_NEW = 12
 SPEC_SEEDS = (0, 1)
+#: moe_forward's input (B, S, d_model of the smoke configs); row (1, 0) is zero
+MOE_X_SHAPE = (2, 12, 64)
+MOE_MODES = ("exact", "precise", "fast", "fast8")
+#: the capacity-drop records: 24 tokens a row at capacity factor 0.5 give
+#: C = 8 a smoke expert (4 experts, top-2: 48 picks a row into 32 places),
+#: so every row drops picks
+MOE_DROP_X_SHAPE = (2, 24, 64)
+MOE_DROP_CF = 0.5
+BATCHED_PROMPT = list(range(2, 12))
+#: the int8-KV test: batch, prompt length, teacher-forced decode steps
+QKV_B, QKV_S, QKV_STEPS = 2, 24, 4
 #: (prompt, max_new, level) of the paged server's mixed batch (2 slots)
 PAGED_WORKLOAD = (
     ([1, 2, 3, 4, 5, 6], 6, "f32"),
@@ -94,6 +127,13 @@ SHARED_RUNS = {
     ("deepseek_7b", "paged"): "test_torch_paged_serving.py",
     ("deepseek_7b", "spec"): "test_torch_speculative.py",
     ("gemma2_2b", "spec"): "test_torch_speculative.py",
+    ("granite_moe_3b_a800m", "moe"): "test_torch_moe.py",
+    ("mixtral_8x22b", "moe"): "test_torch_moe.py",
+    ("mixtral_8x22b", "serve"): "test_torch_families.py",
+    ("command_r_35b", "model"): "test_torch_families.py",
+    ("deepseek_7b", "qkv"): "test_torch_quantized_kv.py",
+    ("gemma2_2b", "qkv"): "test_torch_quantized_kv.py",
+    ("mixtral_8x22b", "qkv"): "test_torch_quantized_kv.py",
 }
 _STARTED = {}
 
@@ -183,7 +223,7 @@ def speculative(flat, cfg, params):
             flat[f"spec/{rung}/{key}"] = np.stack([r[key] for r in dec.trace[start:]])
 
 
-def paged(flat, cfg, params):
+def paged(flat, cfg, params, key="paged/tokens"):
     """The ``paged`` records of the module docstring."""
     from repro.runtime.config import ServingConfig
     from repro.runtime.scheduler import Request
@@ -194,19 +234,96 @@ def paged(flat, cfg, params):
     fins = srv.serve([Request(rid=i, prompt=list(p), max_new=n, level=lv)
                       for i, (p, n, lv) in enumerate(PAGED_WORKLOAD)])
     for i, fin in fins.items():
-        flat[f"paged/tokens{i}"] = np.asarray(fin.tokens, np.int32)
+        flat[f"{key}{i}"] = np.asarray(fin.tokens, np.int32)
+
+
+def moe(flat, cfg, params, pa):
+    """The ``moe`` records of the module docstring."""
+    import dataclasses
+
+    from repro.models.moe import moe_forward
+
+    x = np.random.default_rng(5).normal(size=MOE_X_SHAPE).astype(np.float32)
+    x[1, 0] = 0.0
+    xd = np.random.default_rng(6).normal(size=MOE_DROP_X_SHAPE).astype(np.float32)
+    drop = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_DROP_CF))
+    for key, c, v in (("moe", cfg, x), ("moe/drop", drop, xd)):
+        flat[f"{key}/x"] = v
+        for mode in MOE_MODES:
+            ffn = jax.tree.map(lambda a: a[0], (params if mode in ("exact", "precise") else pa)
+                               ["periods"]["pos0"]["ffn"])
+            dt = jnp.float32 if mode == "exact" else jnp.bfloat16
+            y, aux = jax.jit(lambda p, u, m=mode, c=c: moe_forward(p, u, c, m))(
+                ffn, jnp.asarray(v, dt))
+            flat[f"{key}/{mode}/out"] = np.asarray(y.astype(jnp.float32))
+            flat[f"{key}/{mode}/aux"] = np.asarray(aux)
+
+
+def serve(flat, cfg, params):
+    """The ``serve`` records of the module docstring."""
+    from repro.runtime.config import ServingConfig
+    from repro.runtime.serve import BatchedServer
+
+    srv = BatchedServer(cfg, params, ServingConfig(n_slots=1, max_len=64, max_new=4))
+    flat["serve/batched"] = np.asarray(srv.generate([BATCHED_PROMPT])[0], np.int32)
+    paged(flat, cfg, params, "serve/paged/tokens")
+
+
+def qkv(flat, cfg):
+    """The ``qkv`` records of the module docstring."""
+    params = init_params(cfg, jax.random.PRNGKey(7))
+    rng = np.random.default_rng(1)
+    toks = jnp.asarray(rng.integers(0, cfg.vocab, (QKV_B, QKV_S)))
+    forced = jnp.asarray(rng.integers(0, cfg.vocab, (QKV_STEPS, QKV_B, 1)))
+    flat["qkv/params_seed"] = np.asarray(7)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        flat["qkvparam/" + "/".join(k.key for k in path)] = np.asarray(leaf)
+    prefill = jax.jit(lambda p, t, c: prefill_step(p, t, c, cfg))
+    decode = jax.jit(lambda p, t, q, c: decode_step(p, t, q, c, cfg))
+    for name, kw in (("bf16", {}), ("int8", {"quantized": True})):
+        logits, caches = prefill(params, toks, init_caches(cfg, QKV_B, 64, **kw))
+        seq = [np.asarray(logits, np.float32)]
+        pos = jnp.full((QKV_B,), QKV_S, jnp.int32)
+        for i in range(QKV_STEPS):
+            logits, caches = decode(params, forced[i], pos, caches)
+            seq.append(np.asarray(logits, np.float32))
+            pos = pos + 1
+        flat[f"qkv/{name}/logits"] = np.stack(seq)
+
+    pa = attach_quantized_weights(params, QuantizedWeightCache())
+    c0 = init_caches(cfg, 2, 32, quantized=True)
+    _, c1 = jax.jit(lambda p, t, c: prefill_step(p, t, c, cfg, mode="fast"))(
+        pa, jnp.asarray(SEG_PROMPT), c0)
+    _save_tree(flat, "int8/c1", c1)
+    _, c2 = jax.jit(lambda p, t, q, c: decode_step(p, t, q, c, cfg, mode="fast"))(
+        pa, jnp.asarray(SEG_TOKENS[:, :1]), jnp.asarray(SEG_POSITIONS[:, 0]), c1)
+    _save_tree(flat, "int8/c2", c2)
+    toks, poss = jnp.asarray(SEG_TOKENS), jnp.asarray(SEG_POSITIONS)
+    logits, after, aux = jax.jit(lambda p, t, q, c: segment_step(p, t, q, c, cfg, mode="fast"))(
+        pa, toks, poss, c1)
+    flat["int8/seg/logits"] = np.asarray(logits)
+    _save_tree(flat, "int8/seg", after)
+    merged = jax.jit(lambda b, a, x: commit_segment(
+        b, a, x, cfg, keep_pos=poss[:, 2], keep_count=jnp.full((2,), 3, jnp.int32),
+        active=jnp.asarray([True, False])))(c1, after, aux)
+    _save_tree(flat, "int8/commit", merged)
 
 
 def main(out, arch="deepseek_7b", what=""):
     cfg = smoke(arch)
+    flat = {}
+    if what == "qkv":
+        qkv(flat, cfg)
+        _write(out, flat)
+        return
     params = init_params(cfg, jax.random.PRNGKey(3))
     pa = attach_quantized_weights(params, QuantizedWeightCache())
-    flat = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(pa)[0]:
         flat["param/" + "/".join(k.key for k in path)] = np.asarray(leaf)
-    if what in ("segment", "spec", "paged"):
+    if what in ("segment", "spec", "paged", "serve"):
         {"segment": lambda: segments(flat, cfg, pa), "spec": lambda: speculative(flat, cfg, params),
-         "paged": lambda: paged(flat, cfg, params)}[what]()
+         "paged": lambda: paged(flat, cfg, params),
+         "serve": lambda: serve(flat, cfg, params)}[what]()
         _write(out, flat)
         return
     for mode in ("exact", "fast"):
@@ -233,6 +350,8 @@ def main(out, arch="deepseek_7b", what=""):
             _save(flat, f"{mode}/c2/{pos}", c[pos])
         flat[f"{mode}/logits_decode"] = np.stack(logits)
         flat[f"{mode}/tokens"] = np.asarray(tokens, np.int32)
+    if what == "moe":
+        moe(flat, cfg, params, pa)
     _write(out, flat)
 
 

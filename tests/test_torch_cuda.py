@@ -608,3 +608,92 @@ def test_cuda_speculative_serving_equals_vanilla_and_draft_restores_pool(cuda, c
         for k, node in pool.items():
             for n, v in node.items():
                 assert torch.equal(v, before[k][n]), (k, n)
+
+
+# the grouped K1 / K2 entries of the MoE experts: (E, M, K, N) —
+# granite-moe-3b-a800m's prefill (C = 120) and 4-lane decode (M = 32), a
+# single-lane pass (M = 8: the skinny shape), mixtral-8x22b's decode, and
+# ragged tile edges (K, N not multiples of 16: the 4-byte copies)
+GROUPED_K2 = [(40, 120, 1536, 512), (40, 32, 1536, 512), (40, 8, 1536, 512),
+              (8, 32, 6144, 16384), (3, 1, 100, 52), (3, 9, 100, 52), (3, 129, 1536, 512)]
+GROUPED_K1 = [(40, 120, 512, 1536), (40, 32, 512, 1536), (40, 8, 512, 1536),
+              (8, 32, 16384, 6144), (3, 1, 100, 52), (3, 65, 100, 52), (3, 129, 512, 1536)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M,K,F", GROUPED_K2)
+def test_cuda_fused_swiglu_grouped_matches_plain(cuda, E, M, K, F):
+    from repro_torch.kernels.fused_mlp import fused_swiglu_grouped, fused_swiglu_plain
+
+    g = torch.Generator().manual_seed(E * 1000 + M)
+    x = torch.randint(-128, 128, (E, M, K), generator=g, dtype=torch.int8).to(cuda)
+    wg = torch.randint(-128, 128, (E, K, F), generator=g, dtype=torch.int8).to(cuda)
+    wu = torch.randint(-128, 128, (E, K, F), generator=g, dtype=torch.int8).to(cuda)
+    ea = torch.tensor([-6], dtype=torch.int32, device=cuda)
+    eg = torch.randint(-14, -2, (E, F), generator=g, dtype=torch.int32).to(cuda)
+    eu = torch.randint(-14, -2, (E, F), generator=g, dtype=torch.int32).to(cuda)
+    n0 = fused_swiglu_grouped.launches
+    got = fused_swiglu_grouped(x, wg, wu, ea, eg, eu, return_parts=True)
+    want = fused_swiglu_plain(x, wg, wu, ea, eg, eu, return_parts=True)
+    assert fused_swiglu_grouped.launches == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M,K,N", GROUPED_K1)
+@pytest.mark.parametrize("epilogue", ["float", "q16", "int32"])
+def test_cuda_qmatmul_grouped_matches_plain(cuda, E, M, K, N, epilogue):
+    from repro_torch.kernels.qmatmul import qmatmul_grouped, qmatmul_plain
+
+    g = torch.Generator().manual_seed(E * 1000 + M + 1)
+    a = torch.randint(-128, 128, (E, M, K), generator=g, dtype=torch.int8).to(cuda)
+    b = torch.randint(-128, 128, (E, K, N), generator=g, dtype=torch.int8).to(cuda)
+    ea = torch.tensor([-20], dtype=torch.int32, device=cuda)
+    eb = torch.randint(-40, 30, (E, N), generator=g, dtype=torch.int32).to(cuda)
+    assert torch.equal(qmatmul_grouped(a, b, ea, eb, epilogue),
+                       qmatmul_plain(a, b, ea, eb, epilogue))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [17, 480, 1000])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_flash_head_dim_64_matches_plain(cuda, S, dt):
+    """granite-moe-3b-a800m's heads: 24 of 64 over 8 kv heads (the <= 128
+    class, half of each tile masked)."""
+    g = torch.Generator().manual_seed(S)
+    q, k, v = (torch.randn(1, S, h, 64, generator=g).to(cuda, dt) for h in (24, 8, 8))
+    got = flash_attention(q, k, v).float()
+    want = flash_attention_plain(q, k, v).float()
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    else:
+        assert bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mixtral_8x22b"])
+def test_cuda_moe_fast_layer_two_grouped_launches(cuda, monkeypatch, arch):
+    """A FAST MoE block on the card: one grouped K2 and one grouped K1
+    launch, and the block's output through K2's and K1's plain
+    versions (with the group axis) on the same card bit for bit."""
+    from repro_torch.configs import smoke
+    from repro_torch.core.quantization import QuantizedWeightCache
+    from repro_torch.kernels.fused_mlp import fused_swiglu_grouped, fused_swiglu_plain
+    from repro_torch.kernels.qmatmul import qmatmul_grouped, qmatmul_plain
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import attach_quantized_weights, init_from_specs
+
+    cfg = smoke(arch)
+    params = init_from_specs(moe_mod.moe_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+    params = attach_quantized_weights({k: v.to(cuda) for k, v in params.items()},
+                                      QuantizedWeightCache())
+    x = torch.randn(3, 10, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda, torch.bfloat16)
+    n2, n1 = fused_swiglu_grouped.launches, qmatmul_grouped.launches
+    got, _ = moe_mod.moe_forward(params, x, cfg, "fast")
+    assert (fused_swiglu_grouped.launches - n2, qmatmul_grouped.launches - n1) == (1, 1)
+    monkeypatch.setattr(moe_mod, "fused_swiglu_grouped", fused_swiglu_plain)
+    monkeypatch.setattr(moe_mod, "qmatmul_grouped", qmatmul_plain)
+    want, _ = moe_mod.moe_forward(params, x, cfg, "fast")
+    assert torch.equal(got, want)

@@ -283,11 +283,24 @@ def test_segment_longer_than_the_window_raises(port):
 
 
 def test_int8_kv_cache_and_ssm_snapshots_raise_naming_their_items(port):
+    """The int8 KV cache (ROADMAP.md queue 1 item 7b) no longer raises:
+    a segment on it writes quantized rows with their exponents, records
+    the exponent rows for the rollback, and a commit that rejects every
+    row restores the cache bit for bit (JAX's int8 segment:
+    tests/test_torch_quantized_kv.py).  SSM snapshots still raise naming
+    item 10."""
     p = port["deepseek_7b"]
-    caches = _clone(p["c1"])
-    caches["pos0"]["k_exp"] = torch.zeros(caches["pos0"]["pos"].shape + (1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tm.segment_step(p["params"], torch.from_numpy(SEG_TOKENS), torch.from_numpy(SEG_POSITIONS),
-                        caches, p["cfg"], mode="exact")
+    cfg = p["cfg"]
+    caches = tm.init_caches(cfg, 2, 32, device="cpu", quantized=True)
+    tm.prefill_step(p["params"], torch.from_numpy(SEG_PROMPT), caches, cfg, mode="exact")
+    before = _clone(caches)
+    _, after, aux = tm.segment_step(p["params"], torch.from_numpy(SEG_TOKENS),
+                                    torch.from_numpy(SEG_POSITIONS), caches, cfg, mode="exact")
+    assert {"k_exp", "v_exp"} <= set(aux["pos0"])
+    assert not torch.equal(after["pos0"]["k_exp"], before["pos0"]["k_exp"])
+    tm.commit_segment(after, aux, cfg, keep_pos=torch.full((2,), SEG_POSITIONS[0, 0] - 1),
+                      keep_count=None, active=torch.ones(2, dtype=torch.bool))
+    for name, leaf in before["pos0"].items():
+        assert torch.equal(after["pos0"][name], leaf), name
     with pytest.raises(NotImplementedError, match="item 10"):
         tm.truncate_cache_slot(_clone(p["c1"]), p["cfg"], 0, 3, ssm_snapshot={})
