@@ -139,7 +139,29 @@ Phases, each printing JSON lines:
    (a prompt crosses the window with MoE behind it), with the MoE gates;
 8. command-r-35b at full width (d_model 8192, d_ff 22528, the 256000 x
    8192 tied embedding) and CUT_LAYERS of its 40 layers: six requests at
-   both rungs on K1-K4.
+   both rungs on K1-K4;
+9-11. (slice 10) mamba2-1.3b at full size (48 SSD layers), jamba-v0.1-52b
+   at full width and JAMBA_LAYERS = 8 of its 32 layers (one period:
+   attention, 7 mamba, 4 MLP, 4 MoE of 16 experts; max_len 8192 with a
+   4500-token prompt per rung) and minicpm3-4b at full size (62 MLA
+   layers): each serves the mixed workload on the contiguous pool, every
+   FAST prefill and decode pass launching exactly its kernels
+   (:func:`fast_pass_launches`: K1 on every projection, K2 once an MLP
+   layer, the grouped entries once a MoE layer, K3 once a pass of a model
+   with attention, none on mamba2) and K4 once an attention layer a
+   prefill; then a segment against sequential decode (argmaxes equal,
+   commits keeping latent rows and SSM states bit for bit and restoring
+   rejected rows and an inactive lane bit for bit, a chunked f32 prefill
+   picking ``prefill_step``'s token; every mamba layer alone, its
+   segment's projections and norms run a row at a time, giving the
+   decodes' states bit for bit), the contiguous draft restoring the
+   pool bit for bit, the paged pool (chunked prefill, the SSM state
+   carried from chunk to chunk, exact launches a chunk) and, for mamba2
+   and minicpm3, speculative requests at both drafts on the paged pool
+   held to vanilla ``f32`` by the near-tie rule; K1's and K2's plain
+   versions must never run.  The kernels phase adds K1 at their
+   projections (SLICE10_K1), K2 and the grouped entries at jamba's widths,
+   K4 at D = 96, Dv = 64 and K3 at 16 frequencies.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -150,6 +172,7 @@ rest of the repository beside it, the script exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -630,11 +653,34 @@ def check_kernels(gen, strict: bool):
     emit({"phase": "kernels", "kernel": "qmatmul", "case": "tile edges", "cases": n_edges,
           "shapes": [f"M={m} K={k} N={n}" for m, k, n in k1_edges], "bit_exact": True})
 
+    # slice 10's projections (float epilogue), a decode tick and a 480-token
+    # prefill: mamba2-1.3b's wz / wx (N=4096), wB / wC (128), wdt (64) and
+    # wo (K=4096 N=2048); jamba's wB / wC (N=16) and wdt (128) at K=4096;
+    # minicpm3-4b's wkv_a (K=2560 N=288) and wq_b (K=768 N=3840)
+    for m, k, n in SLICE10_K1:
+        a, b = i8(m, k), i8(k, n)
+        ea, eb = i32(-12, -4, 1), i32(-12, -4, n)
+        got, want = qmatmul(a, b, ea, eb), qmatmul_plain(a, b, ea, eb)
+        torch.cuda.synchronize()
+        rec = {"case": f"M={m} K={k} N={n} float ({SLICE10_K1[(m, k, n)]})",
+               "bit_exact": torch.equal(got, want),
+               "max_abs_err": (got.double() - want.double()).abs().max().item()}
+        require(rec["bit_exact"], f"qmatmul {rec['case']} differs from its plain version")
+        rec["ms"] = time_ms(lambda: qmatmul(a, b, ea, eb))
+        rec["plain_ms"] = time_ms(lambda: qmatmul_plain(a, b, ea, eb), iters=5)
+        rec["library_ms"] = time_ms(lambda: torch._int_mm(a, b)) if m > 16 else None
+        rec["bound_ms"], rec["bound_by"] = bound_ms(m * k + k * n + 4 * n + 4 + 4 * m * n,
+                                                    2.0 * m * n * k, "int8")
+        emit({"phase": "kernels", "kernel": "qmatmul", **rec})
+        keep("qmatmul", rec)
+
     # K2 -------------------------------------------------------------------
     # deepseek-7b (K=4096, F=11008) and gemma2-2b (K=2304, F=9216); M=4 is
     # a tick of four lanes and a draft pass, M=128 a paged prefill chunk
     k2_cases = [(m, 4096, 11008) for m in (1, 4, PAGED_CHUNK, 480, 512)]
     k2_cases += [(m, 2304, 9216) for m in (1, 4, 9, 512, LONG_PROMPT)]
+    # slice 10: jamba's MLP (K=4096, F=14336) and minicpm3-4b's (2560, 6400)
+    k2_cases += [(m, k, f) for m in (4, 480) for (k, f) in ((4096, 14336), (2560, 6400))]
     for m, k, f in k2_cases:
         x, wg, wu = i8(m, k), i8(k, f), i8(k, f)
         ea, eg, eu = i32(-8, -4, 1), i32(-12, -6, f), i32(-12, -6, f)
@@ -678,7 +724,9 @@ def check_kernels(gen, strict: bool):
         require(torch.equal(qmatmul(a, b, ea, eb), qmatmul_plain(a, b, ea, eb)),
                 f"qmatmul M={m} K=22528 N=8192 (command-r) differs from its plain version")
         rec = {"case": f"M={m} K=22528 N=8192 (command-r)", "bit_exact": True,
-               "ms": time_ms(lambda: qmatmul(a, b, ea, eb))}
+               "ms": time_ms(lambda: qmatmul(a, b, ea, eb)),
+               "plain_ms": time_ms(lambda: qmatmul_plain(a, b, ea, eb), iters=3),
+               "library_ms": time_ms(lambda: torch._int_mm(a, b)) if m > 16 else None}
         rec["bound_ms"], rec["bound_by"] = bound_ms(m * 22528 + 22528 * 8192 + 4 * 8192 + 4
                                                     + 4 * m * 8192, 2.0 * m * 8192 * 22528,
                                                     "int8")
@@ -699,7 +747,8 @@ def check_kernels(gen, strict: bool):
     theta = torch.cat([edges, i32(-2**31, 2**31 - 1, 1 << 16)])
     es, ec = cordic_sincos(theta)
     ws, wc = cordic_sincos_plain(theta)
-    for n_pos, rope_dim in ((1024, 128), (4500, 256)):
+    # and (slice 10) minicpm3-4b's MLA, whose rotated part is 32 wide: 16
+    for n_pos, rope_dim in ((1024, 128), (4500, 256), (1024, 32)):
         pos = torch.arange(n_pos, dtype=torch.int32, device=dev)
         s_got, c_got = rope_sincos_q16(pos, rope_dim)
         s_want, c_want = rope_sincos_plain(pos, rope_dim)
@@ -742,18 +791,19 @@ def check_kernels(gen, strict: bool):
     # K4 -------------------------------------------------------------------
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def k4_case(s, h, kv, d, dt, window=None, cap=None, scale=1.0):
+    def k4_case(s, h, kv, d, dt, window=None, cap=None, scale=1.0, dv=None):
+        dv = dv or d
         q = (scale * torch.randn(1, s, h, d, generator=gen)).to(dev, dt)
         k = (scale * torch.randn(1, s, kv, d, generator=gen)).to(dev, dt)
-        v = torch.randn(1, s, kv, d, generator=gen).to(dev, dt)
+        v = torch.randn(1, s, kv, dv, generator=gen).to(dev, dt)
         kw = dict(causal=True, window=window, softcap=cap)
         got = flash_attention(q, k, v, **kw).float()
         want = flash_attention_plain(q, k, v, **kw).float()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         name = "f32" if dt == torch.float32 else "bf16"
-        rec = {"case": f"B=1 S={s} H={h} KV={kv} D={d} {name} causal window={window} "
-                       f"softcap={cap}", "max_abs_err": err}
+        rec = {"case": f"B=1 S={s} H={h} KV={kv} D={d}{f' Dv={dv}' if dv != d else ''} {name} "
+                       f"causal window={window} softcap={cap}", "max_abs_err": err}
         if dt == torch.float32:
             rec["tolerance"] = "abs 2e-3"
             ok = math.isfinite(err) and err <= 2e-3
@@ -772,8 +822,8 @@ def check_kernels(gen, strict: bool):
             rec["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
         pairs = sum(min(i + 1, window or s) for i in range(s))
         esz = 4 if dt == torch.float32 else 2
-        rec["bound_ms"], rec["bound_by"] = bound_ms(esz * (2 * s * h * d + 2 * s * kv * d),
-                                                    4.0 * h * pairs * d,
+        rec["bound_ms"], rec["bound_by"] = bound_ms(esz * (s * h * (d + dv) + s * kv * (d + dv)),
+                                                    2.0 * h * pairs * (d + dv),
                                                     "f32" if dt == torch.float32 else "bf16")
         emit({"phase": "kernels", "kernel": "flash_attention", **rec})
         keep("flash_attention", rec)
@@ -789,6 +839,10 @@ def check_kernels(gen, strict: bool):
     for s in (480, 1000):
         for dt in (torch.float32, torch.bfloat16):
             k4_case(s, 24, 8, 64, dt)
+    # minicpm3-4b's MLA prefill (slice 10): 40 heads over 40, keys of
+    # nope + rope = 96 and values of 64 (D != Dv in the <= 128 class)
+    for dt in (torch.float32, torch.bfloat16):
+        k4_case(480, 40, 40, 96, dt, dv=64)
     # gemma2-2b prefill: 8 heads of 256 over 4 kv heads, scores capped at
     # 50, the local layers' window of 4096 crossed by a 4500-token prompt
     for window in (None, 4096):
@@ -967,9 +1021,18 @@ def check_kernels(gen, strict: bool):
 #: 480-token prefill (C = 152) and a decode pass; a single-lane pass (M =
 #: 8) takes the skinny shape
 GROUPED_K2 = ((40, 120, 1536, 512), (40, 32, 1536, 512), (40, 8, 1536, 512),
-              (8, 152, 6144, 16384), (8, 32, 6144, 16384))
+              (8, 152, 6144, 16384), (8, 32, 6144, 16384),
+              # jamba-v0.1-52b (slice 10): 16 experts, a 480-token prefill's
+              # 80 rows an expert and a 4-lane decode pass's 32
+              (16, 80, 4096, 14336), (16, 32, 4096, 14336))
 GROUPED_K1 = ((40, 120, 512, 1536), (40, 32, 512, 1536), (40, 8, 512, 1536),
-              (8, 152, 16384, 6144), (8, 32, 16384, 6144))
+              (8, 152, 16384, 6144), (8, 32, 16384, 6144),
+              (16, 80, 14336, 4096), (16, 32, 14336, 4096))
+#: slice 10's K1 shapes (M, K, N) -> the projection
+SLICE10_K1 = {(m, k, n): what for m in (4, 480) for (k, n, what) in (
+    (2048, 4096, "mamba2 wz / wx"), (2048, 128, "mamba2 wB / wC"), (2048, 64, "mamba2 wdt"),
+    (4096, 2048, "mamba2 wo"), (4096, 16, "jamba wB / wC"), (4096, 128, "jamba wdt"),
+    (2560, 288, "minicpm3 wkv_a"), (768, 3840, "minicpm3 wq_b"))}
 #: tile edges: 64- / 128-row tiles, the skinny shape below 9 rows, and a
 #: ragged K, N (the 4-byte copies)
 GROUPED_EDGES = tuple((3, m, k, n) for m in (1, 8, 9, 65, 129) for (k, n) in ((1536, 512),
@@ -1617,6 +1680,9 @@ def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_l
         "phase": "serving", "model": cfg.name, "layers": cfg.n_layers,
         "published_layers": published_layers, "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "period": [f"{sp.kind}+{sp.ffn}" for sp in cfg.period],
+        "ssm": dataclasses.asdict(cfg.ssm) if cfg.ssm else None,
+        "mla": dataclasses.asdict(cfg.mla) if cfg.mla else None,
         "windows": [s.window for s in cfg.period],
         "softcaps": [cfg.attn_softcap, cfg.final_softcap],
         "experts": [cfg.moe.num_experts, cfg.moe.top_k] if cfg.moe else None,
@@ -1641,11 +1707,13 @@ def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_l
     require(isolation_ok, f"{cfg.name}: the q16_16 request served alone differs from its "
                           "mixed-batch tokens")
     # the FAST RoPE tables: one K3 launch per q16_16 pass (prefill or
-    # decode), none on the f32 rung
-    want_k3 = rec["q16_16_prefills"] + rec["q16_16_passes"]
+    # decode) of a model with attention (none for an attention-free one),
+    # none on the f32 rung
+    k3 = int(cfg.has_attention)
+    want_k3 = k3 * (rec["q16_16_prefills"] + rec["q16_16_passes"])
     require(rec["launches"]["cordic_sincos"] == want_k3,
             f"{cfg.name}: K3 launched {rec['launches']['cordic_sincos']} times, want {want_k3}")
-    for lv, want in (("q16_16", 1), ("f32", 0)):
+    for lv, want in (("q16_16", k3), ("f32", 0)):
         got = (rec["launches_per_prefill"][lv]["cordic_sincos"],
                rec["launches_per_decode_tick"][lv]["cordic_sincos"])
         require(got == (want, want), f"{cfg.name}: a {lv} prefill / decode pass launched K3 "
@@ -1903,7 +1971,8 @@ def _release(srv):
         return node
 
     params = strip(srv.params)
-    srv.pool = None
+    srv.pool = srv.params = None
+    srv.engine.weight_cache.invalidate()  # the int8 copies
     gc.collect()
     torch.cuda.empty_cache()
     return params
@@ -2044,25 +2113,30 @@ def _count_drafts(srv) -> list:
 
 
 def _pool_drained(srv) -> bool:
+    """No slot bound; on the paged pool every page free and every SSM
+    lane zero."""
+    if srv.scheduler.active_slots():
+        return False
+    if not srv.paged:
+        return True
     snap = srv.metrics_snapshot()
     return all(snap["pages_live"][f"group={gk}"] == 0
                and snap["pages_free"][f"group={gk}"] == g["alloc"].n_pages - 1
-               for gk, g in srv.cache_ops.groups.items())
-
-
-def _ffn_kernels(cfg) -> tuple:
-    """The kernels a FAST pass's feed-forward blocks launch: K2 (then K1)
-    for a dense MLP, the grouped K2 and K1 entries for MoE."""
-    return GROUPED if cfg.moe else ("fused_swiglu",)
+               for gk, g in srv.cache_ops.groups.items()) and \
+        not any(leaf.any() for node in srv.pool["slot"].values() for leaf in node.values())
 
 
 def paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int,
-                 prefix_sharing: bool = True):
-    """``cfg`` (deepseek-7b; granite-moe-3b-a800m from slice 9) on the
-    paged pool, then speculative requests at both draft rungs against
-    paged vanilla f32 (:func:`spec_phases`: identity-gated for a dense
-    model, reported for a MoE one), then (``prefix_sharing``) prefix sharing against
-    the same run with sharing off.  Returns {path: launches}."""
+                 prefix_sharing: bool = True, max_len: int = 1024, levels=LEVELS,
+                 speculative: bool = True):
+    """``cfg`` (deepseek-7b; granite-moe-3b-a800m from slice 9; the SSM /
+    MLA families from slice 10) on a paged pool of ``max_len`` rows a
+    slot, then (``speculative``) speculative requests at both draft rungs
+    against vanilla f32 on the paged pool (:func:`spec_phases`:
+    identity-gated for a dense model, reported for a MoE one), then
+    (``prefix_sharing``) prefix sharing against the same run with sharing
+    off.  Every FAST chunk and pass must launch exactly
+    :func:`fast_pass_launches`.  Returns {path: launches}."""
     import numpy as np
     import torch
 
@@ -2070,7 +2144,7 @@ def paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int,
     from repro_torch.runtime import ContinuousBatchingServer, Request, ServingConfig
 
     dev, sync = torch.device(DEVICE), torch.cuda.synchronize
-    paged = dict(n_slots=4, max_len=1024, cache="paged", page_size=PAGE)
+    paged = dict(n_slots=4, max_len=max_len, cache="paged", page_size=PAGE)
     paths = {}
 
     # -- the mixed workload through the paged pool --------------------------
@@ -2085,7 +2159,7 @@ def paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int,
     sync()
     watch = _LogitWatch(serve_mod)
     reqs = [Request(rid=srv.next_rid(), prompt=p, max_new=MAX_NEW, level=lv)
-            for p, lv in zip(prompts, LEVELS)]
+            for p, lv in zip(prompts, levels)]
     q16_0 = srv.metrics_snapshot()["level_passes_total"].get("level=q16_16", 0)
     chunks0 = srv.stats["prefill_chunks"]
     _reset_launch_counts()
@@ -2120,7 +2194,7 @@ def paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int,
         sync()
         ttft[f"{lv}@480"] = (time.perf_counter() - t1) * 1e3
     n_tokens = sum(f.n_generated for f in fins.values())
-    rec = {"phase": "paged", "model": cfg.name, "n_slots": 4, "max_len": 1024, "page_size": PAGE,
+    rec = {"phase": "paged", "model": cfg.name, "n_slots": 4, "max_len": max_len, "page_size": PAGE,
            "prefill_chunk": PAGED_CHUNK, "n_pages": srv.cache_ops.report()["groups"],
            "requests": len(reqs), "generated_tokens": n_tokens, "serve_wall_s": wall,
            "tokens_per_s": n_tokens / wall, "contiguous_tokens_per_s": contig["tokens_per_s"],
@@ -2140,18 +2214,18 @@ def paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int,
     require(logits_ok, "paged: logits not all finite")
     require(drained, "paged: the pool did not drain after the run")
     require(isolation_ok, "paged: the q16_16 request served alone differs from its batch tokens")
-    for name in ("qmatmul", "cordic_sincos") + _ffn_kernels(cfg):
-        require(launches[name] > 0, f"paged: kernel {name} was not launched")
     require(launches["flash_attention"] == 0, "paged: chunked prefill launched K4")
-    if cfg.moe:
-        require(launches["fused_swiglu"] == 0, "paged: a MoE model launched the dense K2")
-    want_k3 = sum(-(-len(p) // PAGED_CHUNK) for p, lv in zip(prompts, LEVELS) if lv == "q16_16")
-    require(launches["cordic_sincos"] == want_k3 + q16_passes,
-            f"paged: K3 launched {launches['cordic_sincos']} times, want {want_k3 + q16_passes}")
+    fast_chunks = sum(-(-len(p) // PAGED_CHUNK) for p, lv in zip(prompts, levels)
+                      if lv == "q16_16")
+    for name, n in fast_pass_launches(cfg).items():
+        require(launches[name] == n * (fast_chunks + q16_passes),
+                f"paged {cfg.name}: {name} launched {launches[name]} times, want {n} in "
+                f"each of {fast_chunks} FAST chunks and {q16_passes} FAST passes")
     paths["paged"] = launches
 
-    spec_prompts = [next(p for p in prompts if len(p) == n) for n in SPEC_LENS]
-    paths.update(spec_phases(cfg, params, spec_prompts, identity=not cfg.moe))
+    if speculative:
+        spec_prompts = [next(p for p in prompts if len(p) == n) for n in SPEC_LENS]
+        paths.update(spec_phases(cfg, params, spec_prompts, identity=not cfg.moe))
 
     if not prefix_sharing:
         return paths
@@ -2200,7 +2274,8 @@ def paged_phases(cfg, params, prompts, contig_tokens, contig, seed: int,
 
 def spec_phases(cfg, params, spec_prompts, identity: bool, tag: str = "") -> dict:
     """Speculative requests (paged pool, k = SPEC_K) at both draft rungs
-    against paged vanilla f32 on ``spec_prompts``.  With ``identity``
+    against paged vanilla f32 on ``spec_prompts``; every draft pass launches exactly
+    :func:`fast_pass_launches`.  With ``identity``
     every stream must equal vanilla's or part from it only at a near tie
     (:func:`_near_tie`), and each draft rung must have a draft accepted;
     without it (a MoE model at a depth where the exact rung's decode and
@@ -2269,14 +2344,12 @@ def spec_phases(cfg, params, spec_prompts, identity: bool, tag: str = "") -> dic
         require(st["spec_rounds"] > 0 and passes[0] > 0, f"speculative {rung}: no round ran")
         require(not identity or st["spec_accepted"] > 0,
                 f"speculative {rung}: no draft token accepted in {st['spec_drafted']}")
+        # the f32 verify launches none of them, nor K4 (chunked prefill)
         per = rec["launches_per_draft_pass"]
-        require(per.get("cordic_sincos") == 1 and per.get("qmatmul", 0) > 0
-                and per.get("fused_swiglu", 0) > 0 and launches["flash_attention"] == 0
-                if not cfg.moe else
-                per.get("cordic_sincos") == 1 and per.get("qmatmul", 0) > 0
-                and all(per.get(g) == cfg.n_layers for g in GROUPED)
-                and launches["fused_swiglu"] == 0 and launches["flash_attention"] == 0,
-                f"speculative {rung}: launches per draft pass {per}")
+        want = {k: v for k, v in fast_pass_launches(cfg).items() if v}
+        require({k: per.get(k) for k in want} == want and launches["flash_attention"] == 0,
+                f"speculative {rung}: launches per draft pass {per}, want {want}; "
+                f"K4 {launches['flash_attention']} times")
         paths[f"spec_draft_{rung}{tag}"] = launches
     return paths
 
@@ -2647,6 +2720,441 @@ def command_r_phase(seed: int, strict: bool):
     return {"serve": launches}
 
 
+
+# ---------------------------------------------------------------------------
+# phases 9-11: the SSM and MLA families (slice 10)
+# ---------------------------------------------------------------------------
+
+#: jamba-v0.1-52b runs at full width and one period (8 of its 32 layers:
+#: the least depth with all four layer kinds); its 51.5 B f32 parameters
+#: do not fit one card
+JAMBA_LAYERS = 8
+
+
+def _has_ssm() -> bool:
+    """False only for a --root checkout older than the SSM / MLA slice."""
+    from repro_torch.configs import PORTED
+
+    return "mamba2_1_3b" in PORTED
+
+
+def fast_pass_launches(cfg) -> dict:
+    """The kernel launches of one FAST pass of ``cfg`` on cached int8
+    weights (a prefill, a decode pass, a draft pass or a prefill chunk):
+    K1 on every projection (4 a GQA or MLA layer, 6 a mamba layer, an
+    MLP's ``w_down``), K2 once an MLP layer, the grouped K2 and K1 entries
+    once a MoE layer, K3 once a pass of a model with attention."""
+    k1 = k2 = moe = 0
+    for sp in cfg.period:
+        k1 += 6 if sp.kind == "mamba" else 4
+        k1 += sp.ffn == "mlp"
+        k2 += sp.ffn == "mlp"
+        moe += sp.ffn == "moe"
+    n = cfg.n_periods
+    return {"qmatmul": n * k1, "fused_swiglu": n * k2, "cordic_sincos": int(cfg.has_attention),
+            **{g: n * moe for g in GROUPED}}
+
+
+def attn_layers(cfg) -> int:
+    """Layers whose contiguous prefill runs K4 (GQA and MLA)."""
+    return cfg.n_periods * sum(sp.kind in ("attn", "mla") for sp in cfg.period)
+
+
+def family_gates(rec, cfg) -> None:
+    """Every FAST prefill and decode pass launches exactly
+    :func:`fast_pass_launches`, an f32 pass none of them; every prefill
+    runs K4 once an attention layer, a decode pass never; the mixed run's
+    totals are those counts times its FAST passes and prefills."""
+    want = fast_pass_launches(cfg)
+    for lv in ("q16_16", "f32"):
+        exp = want if lv == "q16_16" else {k: 0 for k in want}
+        for what, counts in (("prefill", rec["launches_per_prefill"][lv]),
+                             ("decode pass", rec["launches_per_decode_tick"][lv])):
+            got = {k: counts[k] for k in want}
+            require(got == exp, f"{cfg.name}: a {lv} {what} launched {got}, want {exp}")
+        k4 = (rec["launches_per_prefill"][lv]["flash_attention"],
+              rec["launches_per_decode_tick"][lv]["flash_attention"])
+        require(k4 == (attn_layers(cfg), 0), f"{cfg.name}: a {lv} prefill / decode pass "
+                f"launched K4 {k4} times, want ({attn_layers(cfg)}, 0)")
+    passes = rec["q16_16_prefills"] + rec["q16_16_passes"]
+    for k, n in want.items():
+        require(rec["launches"][k] == n * passes, f"{cfg.name}: {k} launched "
+                f"{rec['launches'][k]} times in the mixed run, want {n} x {passes} FAST passes")
+    require(rec["launches"]["flash_attention"] == attn_layers(cfg) * rec["requests"],
+            f"{cfg.name}: K4 launched {rec['launches']['flash_attention']} times for "
+            f"{rec['requests']} prefills, want {attn_layers(cfg)} each")
+
+
+def _leaf_rows(cache, keep):
+    """{leaf: rows} of one cache node: a position-indexed node's rows at
+    ``keep`` (slots) of lane 0, an SSM node's lane 0 whole."""
+    if "pos" in cache:
+        return {leaf: cache[leaf][:, 0, keep] for leaf in cache}
+    return {leaf: cache[leaf][:, 0] for leaf in cache}
+
+
+#: the isolated mixer's prefill length (the segment phase's prompt)
+ISO_PREFIX = 480
+
+
+@contextlib.contextmanager
+def _patched(mod, **fns):
+    """Swap ``mod``'s functions for ``fns`` for the block's duration."""
+    orig = {n: getattr(mod, n) for n in fns}
+    for n, fn in fns.items():
+        setattr(mod, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(mod, n, fn)
+
+
+def _rowwise(fn):
+    """``fn``, a per-position function of x (B,S,...), run one position at
+    a time, at the shape a single-token decode gives it."""
+    import torch
+
+    def call(x, *a, **kw):
+        return torch.cat([fn(x[:, t:t + 1], *a, **kw) for t in range(x.shape[1])], dim=1)
+    return call
+
+
+def _gap_over_rms(got, want) -> float:
+    """max |got - want| over the rms of ``want``."""
+    rms = want.pow(2).mean().sqrt().clamp_min(1e-30)
+    return ((got - want).abs().max() / rms).item()
+
+
+def ssm_isolation(params, cfg, keep_count: int, seed: int) -> dict:
+    """Every mamba layer of ``cfg`` alone (exact rung, batch 1) on the
+    same seeded layer inputs both ways: an ISO_PREFIX-row prefill, then
+    one ``ssm_forward`` segment of SEG_S positions against SEG_S
+    single-token decodes.  Returns, over the layers, the largest gap of
+    the segment's state after ``keep_count`` positions, its last state
+    and its conv carry to the decodes', over the decodes' rms: with the
+    segment as served (its projections and norms over SEG_S rows) and
+    with those run a row at a time, as a decode runs them."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models as tm
+    from repro_torch.models import ssm as ssm_mod
+
+    dev, gap = torch.device(DEVICE), _gap_over_rms
+    rng = np.random.default_rng(seed)
+    x0, xs = (torch.from_numpy(rng.standard_normal((1, n, cfg.d_model), dtype=np.float32)).to(dev)
+              for n in (ISO_PREFIX, SEG_S))
+    out = {"segment": 0.0, "segment_row_at_a_time": 0.0, "layers": 0}
+    for i in range(cfg.n_periods):
+        lp = tm.layer_params(params, i)
+        for j, sp in enumerate(cfg.period):
+            if sp.kind != "mamba":
+                continue
+            p = lp[f"pos{j}"]["mixer"]
+            base = ssm_mod.init_ssm_cache(cfg, 1, device=dev)
+            ssm_mod.ssm_forward(p, x0, cfg, mode="exact", cache=base, prefill=True)
+            seq = {k: v.clone() for k, v in base.items()}
+            seq_states = []
+            for t in range(SEG_S):
+                ssm_mod.ssm_forward(p, xs[:, t:t + 1], cfg, mode="exact", cache=seq)
+                seq_states.append(seq["state"].clone())
+            for what in ("segment", "segment_row_at_a_time"):
+                seg, aux = {k: v.clone() for k, v in base.items()}, {}
+                rows = (dict(pdot=_rowwise(ssm_mod.pdot), rms_norm=_rowwise(ssm_mod.rms_norm))
+                        if what == "segment_row_at_a_time" else {})
+                with _patched(ssm_mod, **rows):
+                    ssm_mod.ssm_forward(p, xs, cfg, mode="exact", cache=seg, seg_aux=aux)
+                out[what] = max(out[what], gap(aux["states"][:, keep_count - 1],
+                                               seq_states[keep_count - 1]),
+                                gap(seg["state"], seq["state"]), gap(seg["conv"], seq["conv"]))
+            out["layers"] += 1
+    return out
+
+
+def _first_mamba_inputs(ssm_mod, cfg, into: list):
+    """A spy for ``ssm_mod.ssm_forward`` that appends to ``into`` the input
+    of the model's first mamba layer in every pass."""
+    n = cfg.n_periods * sum(sp.kind == "mamba" for sp in cfg.period)
+    orig, count = ssm_mod.ssm_forward, [0]
+
+    def spy(params, x, *a, **kw):
+        if count[0] % n == 0:
+            into.append(x.clone())
+        count[0] += 1
+        return orig(params, x, *a, **kw)
+    return spy
+
+
+def hybrid_segment_phase(srv, cfg, prompt, max_len: int, keep_count: int, seed: int):
+    """The segment steps of an SSM / MLA model on the served parameters
+    (batch 1): exact-rung prefill of ``prompt``, one ``segment_step`` of
+    SEG_S tokens whose argmaxes must equal SEG_S sequential
+    ``decode_step`` calls; ``commit_segment`` at ``keep_count``: the
+    accepted latent rows kept bit for bit, the rejected ones the
+    pre-segment rows bit for bit, an SSM layer's state the segment's
+    candidate after ``keep_count`` positions and its conv history the
+    matching rows, bit for bit, and within f32 noise of the sequential
+    decode's after ``keep_count`` steps (the model's first layer, when it
+    is a mamba layer, within 1e-4 of the state's rms; deeper layers
+    reported, with the gap of the first mamba layer's input); every mamba
+    layer alone (:func:`ssm_isolation`) bit for bit once the segment's
+    projections and norms run a row at a time; a second commit
+    with the lane inactive restores the whole pre-segment cache bit for
+    bit; the FAST segment launches exactly one pass's kernels; and a
+    chunked f32 prefill (CHUNK-token segments, the SSM state carried from
+    chunk to chunk) picks ``prefill_step``'s next token.  Returns
+    {path: launches}."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models as tm
+    from repro_torch.models import ssm as ssm_mod
+
+    dev, sync, params = torch.device(DEVICE), torch.cuda.synchronize, srv.params
+    has_ssm = any(sp.kind == "mamba" for sp in cfg.period)
+    ins = []
+    spy = dict(ssm_forward=_first_mamba_inputs(ssm_mod, cfg, ins)) if has_ssm else {}
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    n = len(prompt)
+    caches = tm.init_caches(cfg, 1, max_len, device=dev)
+    first_logits, _ = tm.prefill_step(params, torch.tensor([prompt], dtype=torch.int32,
+                                                           device=dev), caches, cfg, mode="exact")
+    first = int(first_logits.argmax())
+    drafts = np.random.default_rng(seed).integers(0, cfg.vocab, SEG_S - 1).tolist()
+    seg = torch.tensor([[first] + drafts], dtype=torch.int32, device=dev)
+    pos = torch.arange(n, n + SEG_S, dtype=torch.int32, device=dev)[None]
+    before, seq = _clone_tree(caches), _clone_tree(caches)
+    seq_logits, seq_at_keep = [], None
+    with _patched(ssm_mod, **spy):
+        sync()
+        t0 = time.perf_counter()
+        seg_logits, _, aux = tm.segment_step(params, seg, pos, caches, cfg, mode="exact")
+        sync()
+        seg_ms = (time.perf_counter() - t0) * 1e3
+        after = _clone_tree(caches)
+        for i in range(SEG_S):
+            seq_logits.append(tm.decode_step(params, seg[:, i:i + 1], pos[:, i], seq, cfg,
+                                             mode="exact")[0])
+            if i + 1 == keep_count:
+                seq_at_keep = _clone_tree(seq)
+    seq_logits = torch.stack(seq_logits, dim=1)
+    # the first mamba layer's input, segment against the decodes
+    input_gap = (max(_gap_over_rms(ins[0][:, t], ins[1 + t][:, 0]) for t in range(SEG_S))
+                 if has_ssm else None)
+    del ins
+    argmax_seg = seg_logits.argmax(-1)[0].tolist()
+    argmax_seq = seq_logits.argmax(-1)[0].tolist()
+
+    tm.commit_segment(caches, aux, cfg, keep_pos=pos[:, keep_count - 1],
+                      keep_count=torch.tensor([keep_count], device=dev), active=one)
+    slots = pos[0].long()
+    acc, rej = slots[:keep_count], slots[keep_count:]
+    kept_ok, restored_ok, noise, noise0, first_ssm = True, True, 0.0, None, None
+    for key, node in caches.items():
+        if "pos" in node:
+            for leaf in node:
+                kept_ok &= torch.equal(node[leaf][:, 0, acc], after[key][leaf][:, 0, acc])
+                restored_ok &= torch.equal(node[leaf][:, 0, rej], before[key][leaf][:, 0, rej])
+            continue
+        a = aux[key]
+        kept_ok &= torch.equal(node["state"][:, 0], a["states"][:, 0, keep_count - 1])
+        kept_ok &= torch.equal(node["conv"][:, 0], a["conv_hist"][:, 0, keep_count:
+                                                                  keep_count + node["conv"].shape[2]]
+                               .to(node["conv"].dtype))
+        for leaf in ("state", "conv"):
+            got, want = node[leaf][:, 0], seq_at_keep[key][leaf][:, 0]
+            rms = want.pow(2).flatten(1).mean(1).sqrt().clamp_min(1e-30)
+            per_layer = (got - want).abs().flatten(1).amax(1) / rms         # (P,)
+            noise = max(noise, per_layer.max().item())
+            first_ssm = first_ssm or key
+            if key == first_ssm:
+                noise0 = max(noise0 or 0.0, per_layer[0].item())
+    # the same segment again with the lane inactive: nothing may change
+    for key in caches:
+        for leaf in caches[key]:
+            caches[key][leaf].copy_(before[key][leaf])
+    _, _, aux = tm.segment_step(params, seg, pos, caches, cfg, mode="exact")
+    tm.commit_segment(caches, aux, cfg, keep_pos=pos[:, keep_count - 1],
+                      keep_count=torch.tensor([keep_count], device=dev), active=~one)
+    inactive_ok = all(torch.equal(caches[k][leaf], before[k][leaf])
+                      for k in caches for leaf in caches[k])
+
+    # the FAST segment from the pre-segment cache: one pass's kernels
+    _reset_launch_counts()
+    fast_logits, _, _ = tm.segment_step(params, seg, pos, caches, cfg, mode="fast")
+    sync()
+    fast_launches = _launch_counts()
+    fast_finite = bool(torch.isfinite(fast_logits).all())
+    del seq, seq_at_keep, before, after, aux, fast_logits
+    iso = ssm_isolation(params, cfg, keep_count, seed) if has_ssm else None
+
+    # the chunked f32 prefill, the SSM state carried through the segment path
+    caches = tm.init_caches(cfg, 1, max_len, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    for c0 in range(0, n, CHUNK):
+        r = min(CHUNK, n - c0)
+        toks = torch.zeros((1, CHUNK), dtype=torch.int32, device=dev)
+        toks[0, :r] = torch.tensor(prompt[c0:c0 + r], dtype=torch.int32, device=dev)
+        cpos = torch.arange(c0, c0 + CHUNK, dtype=torch.int32, device=dev)[None]
+        logits, _, caux = tm.segment_step(params, toks, cpos, caches, cfg, mode="exact")
+        tm.commit_segment(caches, caux, cfg, keep_pos=cpos[:, r - 1],
+                          keep_count=torch.tensor([r], device=dev), active=one)
+        last = logits[0, r - 1]
+        del caux
+    sync()
+    chunked = {"chunk": CHUNK, "chunks": -(-n // CHUNK), "next_token": int(last.argmax()),
+               "prefill_next_token": first,
+               "max_logit_gap": (last - first_logits[0]).abs().max().item(),
+               "ms": (time.perf_counter() - t0) * 1e3,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_fast = fast_pass_launches(cfg)
+    rec = {"phase": "segment", "model": cfg.name, "layers": cfg.n_layers, "prompt_len": n,
+           "positions": [n, n + SEG_S - 1], "keep_count": keep_count,
+           "argmax_segment": argmax_seg, "argmax_sequential": argmax_seq,
+           "max_logit_gap": (seg_logits - seq_logits).abs().max().item(),
+           "kept_bit_exact": kept_ok, "rejected_restored_bit_exact": restored_ok,
+           "ssm_vs_sequential_max_err_over_rms": noise,
+           "ssm_first_layer_vs_sequential_max_err_over_rms": noise0,
+           "ssm_first_layer_input_gap_over_rms": input_gap,
+           "ssm_mixer_alone_vs_sequential_max_err_over_rms": iso,
+           "inactive_lane_bit_exact": inactive_ok,
+           "segment_ms": seg_ms, "fast_segment_launches": {k: v for k, v in
+                                                           fast_launches.items() if v},
+           "fast_logits_finite": fast_finite, "chunked_prefill": chunked,
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    require(argmax_seg == argmax_seq, f"{cfg.name}: segment argmaxes {argmax_seg} differ from "
+            f"sequential decode's {argmax_seq}")
+    require(kept_ok and restored_ok and inactive_ok,
+            f"{cfg.name}: commit_segment kept {kept_ok}, restored {restored_ok}, inactive lane "
+            f"{inactive_ok}")
+    # the committed SSM state against the sequential decode's.  Every
+    # mamba layer alone, on the same inputs both ways: the segment's
+    # projections and norms run over SEG_S rows, a decode's over one, and
+    # that is the only difference: run a row at a time, the segment's
+    # states and conv carry are the decodes' bit for bit (as served, the
+    # gap is reported).  In the model, where the first layer is a mamba
+    # layer (mamba2) its inputs are the same embeddings: within 1e-4.
+    # Behind other layers (jamba's attention and MLP) the first mamba
+    # layer's input already differs by ``input_gap``, and deeper layers
+    # compound it through the cumulative state: reported
+    require(iso is None or iso["segment_row_at_a_time"] == 0.0,
+            f"{cfg.name}: a mamba layer's segment alone, run a row at a time, is {iso} of "
+            "its rms off the sequential decode's")
+    if first_ssm == "pos0":
+        require(noise0 <= 1e-4, f"{cfg.name}: the first layer's committed SSM state is "
+                f"{noise0} of its rms off the sequential decode's")
+    require(fast_finite, f"{cfg.name}: FAST segment logits not finite")
+    require({k: fast_launches[k] for k in want_fast} == want_fast,
+            f"{cfg.name}: the FAST segment launched {fast_launches}, want {want_fast}")
+    require(chunked["next_token"] == first, f"{cfg.name}: chunked prefill {chunked} disagrees "
+            "with prefill_step")
+    return {"segment_fast": fast_launches}
+
+
+def draft_restore_phase(srv, cfg, prompts) -> dict:
+    """The contiguous draft on a pool of 4 lanes, 3 of them prefilled at
+    f32, the draft passes at each rung over lanes 0 and 1: afterwards the
+    pool (attention rows, latent rows, SSM states and conv histories)
+    equals the pre-draft pool bit for bit."""
+    import torch
+
+    from repro_torch import models as tm
+    from repro_torch.runtime.speculative import register_spec_steps
+
+    dev = torch.device(DEVICE)
+    lens = [len(p) for p in prompts[:3]]
+    pool = tm.init_caches(cfg, 4, max(lens) + SPEC_K + 1, device=dev)
+    for i, p in enumerate(prompts[:3]):
+        view = {k: {leaf: v[:, i:i + 1] for leaf, v in node.items()} for k, node in pool.items()}
+        tm.prefill_step(srv.params, torch.tensor([p], dtype=torch.int32, device=dev), view, cfg,
+                        mode="exact")
+    before = _clone_tree(pool)
+    draft, _, names = register_spec_steps(srv.engine, cfg, SPEC_K)
+    tok = torch.tensor([7, 8, 9, 0], dtype=torch.int32, device=dev)
+    pos = torch.tensor(lens + [0], dtype=torch.int32, device=dev)
+    mask = torch.tensor([True, True, False, False], device=dev)
+    out = {}
+    for ri, name in enumerate(names):
+        drafts = draft[ri](srv.params, tok, pos, pool, mask)
+        out[name] = all(torch.equal(pool[k][leaf], before[k][leaf])
+                        for k in pool for leaf in pool[k])
+        require(drafts.shape == (4, SPEC_K), f"{cfg.name}: drafts {tuple(drafts.shape)}")
+    emit({"phase": "draft_restore", "model": cfg.name, "lanes_drafted": 2,
+          "pool_bit_exact_after_draft": out})
+    require(all(out.values()), f"{cfg.name}: the contiguous draft did not restore the pool: {out}")
+    del pool, before
+    return {}
+
+
+def family_phase(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_lens,
+                 n_layers=None, speculative: bool = True) -> dict:
+    """One model of slice 10: the mixed workload on the contiguous pool
+    with :func:`family_gates` (and the isolation contract), the segment
+    steps (:func:`hybrid_segment_phase`) and the contiguous draft's
+    restore, then on the same f32 tensors the paged pool (chunked prefill,
+    no sharing) and (``speculative``) speculative requests on the paged
+    pool, every FAST chunk and pass held to its exact launches; K1's and K2's plain
+    versions must never run."""
+    import torch
+
+    plain = {}
+    undo = _count_plain(plain)
+    try:
+        rec, srv, prompts, tokens = _serve_model(name, seed, max_len, prompt_lens, levels,
+                                                 ttft_lens, n_layers=n_layers)
+        cfg = srv.cfg
+        family_gates(rec, cfg)
+        paths = {"serve": rec["launches"]}
+        paths.update(hybrid_segment_phase(srv, cfg, next(p for p in prompts if len(p) == 480),
+                                          max_len, 3, seed))
+        draft_restore_phase(srv, cfg, prompts)
+        params = _release(srv)
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(paged_phases(cfg, params, prompts, tokens, rec, seed, prefix_sharing=False,
+                                  max_len=max_len, levels=levels, speculative=speculative))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        undo()
+    require(not plain, f"{name}: the K1 / K2 plain versions ran on the card: {plain}")
+    return paths
+
+
+def mamba2_phase(seed: int, strict: bool):
+    """mamba2-1.3b at full size (48 SSD layers, d_model 2048, 64 heads of
+    64, d_state 128): every projection on K1, no attention, so no K3 and
+    no K4; contiguous, paged and speculative (paged pool; the contiguous
+    draft's restore is :func:`draft_restore_phase`'s)."""
+    return family_phase("mamba2_1_3b", seed, 1024, PROMPT_LENS, LEVELS, (480,))
+
+
+def jamba_phase(seed: int, strict: bool):
+    """jamba-v0.1-52b at full width and JAMBA_LAYERS layers (one period:
+    attention, 7 mamba, 4 MLP and 4 MoE of 16 experts top-2) on an
+    8192-token pool, with a 4500-token prompt per rung: contiguous and
+    paged."""
+    return family_phase("jamba_v01_52b", seed, 8192, PROMPT_LENS + (LONG_PROMPT, LONG_PROMPT),
+                        LEVELS + ("q16_16", "f32"), (480, LONG_PROMPT), n_layers=JAMBA_LAYERS,
+                        speculative=False)
+
+
+def minicpm3_phase(seed: int, strict: bool):
+    """minicpm3-4b at full size (62 MLA layers, 40 heads, q_lora 768,
+    kv_lora 256, nope 64 / rope 32 / v 64): K4 at D = 96, Dv = 64 in
+    prefill, the absorbed decode; contiguous, paged and speculative (paged
+    pool)."""
+    return family_phase("minicpm3_4b", seed, 1024, PROMPT_LENS, LEVELS, (480,))
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -2766,6 +3274,11 @@ def main(argv=None) -> int:
                        ("command_r_35b", command_r_phase)]
         else:
             require(root != ROOT, "the MoE slice's configs are missing")
+        if _has_ssm():
+            models += [("mamba2_1_3b", mamba2_phase), ("jamba_v01_52b", jamba_phase),
+                       ("minicpm3_4b", minicpm3_phase)]
+        else:
+            require(root != ROOT, "the SSM / MLA slice's configs are missing")
         for model, phase in models:
             gc.collect()
             torch.cuda.empty_cache()

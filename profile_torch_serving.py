@@ -3,17 +3,18 @@
 
 Usage (repository root, on a machine with an NVIDIA card)::
 
-    python3 profile_torch_serving.py [--model gemma2_2b | granite_moe_3b_a800m] [--out FILE]
+    python3 profile_torch_serving.py [--model MODEL] [--out FILE]
 
-Builds the full model (deepseek-7b by default, gemma2-2b or
-granite-moe-3b-a800m; random weights from a seed) behind
-``ContinuousBatchingServer(n_slots=4, max_len=1024)`` (gemma2-2b:
-``max_len=8192``, its published context) with the timing tier of the
+Builds the full model (deepseek-7b by default, gemma2-2b,
+granite-moe-3b-a800m, mamba2-1.3b or minicpm3-4b; jamba-v0.1-52b at full
+width and one period of 8 layers, as ``chip_smoke.py`` runs it; random
+weights from a seed) behind ``ContinuousBatchingServer(n_slots=4,
+max_len=1024)`` (gemma2-2b and jamba: ``max_len=8192``) with the timing tier of the
 server's telemetry on (no device barriers, no trace), and measures
 windows of real ``serve()`` calls:
 
 * ``prefill <n> <rung>``: one 480-token prompt (gemma2-2b: and one of
-  4500 tokens, past the local layers' window), ``max_new=1``;
+  4500 tokens, past the local layers' window; jamba too), ``max_new=1``;
 * ``admit4``: four 64-token prompts, two per rung, ``max_new=1``;
 * ``admit4+decode``: the same four with ``max_new=TICKS+1``; the
   difference of the two is ``decode``, ``TICKS`` mixed decode ticks;
@@ -45,6 +46,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from chip_smoke import JAMBA_LAYERS  # noqa: E402
+
 #: mirrors chip_smoke.py's mixed workload
 PROMPT_LENS = (17, 32, 64, 96, 150, 200, 300, 480)
 LEVELS = ("q16_16", "f32", "f32", "f32", "q16_16", "q16_16", "q16_16", "f32")
@@ -53,7 +56,11 @@ MAX_NEW = 16
 TICKS = 16
 #: model -> (pool length, the long prompts its workload adds)
 MODELS = {"deepseek_7b": (1024, ()), "gemma2_2b": (8192, (4500,)),
-          "granite_moe_3b_a800m": (1024, ())}
+          "granite_moe_3b_a800m": (1024, ()), "mamba2_1_3b": (1024, ()),
+          "minicpm3_4b": (1024, ()), "jamba_v01_52b": (8192, (4500,))}
+#: models served at a cut depth (their f32 weights do not fit one card),
+#: the depth chip_smoke.py serves them at
+CUT_LAYERS = {"jamba_v01_52b": JAMBA_LAYERS}
 PHASES = ("host_schedule", "device_dispatch", "sync")
 
 
@@ -83,6 +90,10 @@ def main(argv=None) -> int:
     max_len, long_prompts = MODELS[args.model]
     out_path = args.out or os.path.join(ROOT, "build", f"profile-{args.model}.txt")
     cfg = get_config(args.model)
+    if args.model in CUT_LAYERS:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS[args.model])
     scfg = ServingConfig(n_slots=4, max_len=max_len,
                          telemetry=TelemetryConfig(enabled=True, trace=False))
     srv = ContinuousBatchingServer(cfg, init_params(cfg, seed=args.seed), scfg)

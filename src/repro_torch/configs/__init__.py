@@ -3,10 +3,12 @@
 The port carries the families whose layers it has ported: deepseek_7b
 (dense GQA attention + SwiGLU), gemma2_2b (the same, with local /
 global sliding-window periods, score and final softcaps, tied
-embeddings), command_r_35b (dense, tied embeddings) and the
+embeddings), command_r_35b (dense, tied embeddings), the
 Mixture-of-Experts decoders granite_moe_3b_a800m and mixtral_8x22b
-(sliding window 4096).  ``get_config`` raises
-``NotImplementedError`` naming the ROADMAP item for every other family.
+(sliding window 4096), the attention-free SSD model mamba2_1_3b, the
+hybrid jamba_v01_52b (attention, mamba, MLP and MoE in a period of 8)
+and the MLA decoder minicpm3_4b.  ``get_config`` raises
+``NotImplementedError`` naming the ROADMAP item for the modality stubs.
 """
 
 from __future__ import annotations
@@ -28,13 +30,11 @@ ARCH_IDS = (
     "musicgen_large",
 )
 
-PORTED = ("deepseek_7b", "gemma2_2b", "command_r_35b", "granite_moe_3b_a800m", "mixtral_8x22b")
+PORTED = ("deepseek_7b", "gemma2_2b", "command_r_35b", "granite_moe_3b_a800m", "mixtral_8x22b",
+          "mamba2_1_3b", "jamba_v01_52b", "minicpm3_4b")
 
 #: where each family not ported yet stands in ROADMAP.md
 _WAITING = {
-    "minicpm3_4b": "queue 1 item 10 (MLA)",
-    "jamba_v01_52b": "queue 1 item 10 (SSM hybrid)",
-    "mamba2_1_3b": "queue 1 item 10 (SSM)",
     "phi3_vision_4_2b": "queue 1 item 10 (modality stubs)",
     "musicgen_large": "queue 1 item 10 (modality stubs)",
 }

@@ -10,8 +10,17 @@ softcap.  Prefill attention runs kernel K4 (``kernels.flashattn``, the
 function of ``chunked_attention``, score softcap included);
 ``decode_attention`` and ``decode_attention_multi`` stay plain PyTorch,
 as the reference has no Pallas kernel for them.  Score capping is f32 on
-every rung (the reference's policy).  MLA waits for a later slice
-(ROADMAP.md queue 1 item 10).
+every rung (the reference's policy).
+
+MLA (minicpm3): ``mla_specs``, ``init_mla_cache``,
+``reset_mla_cache_slot`` and ``mla_forward``.  The cache holds the
+latent ``ckv`` (B, L, kv_lora_rank), the shared rotated key part
+``krope`` (B, L, rope_dim) and ``pos``; prefill expands the latent to
+per-head keys and values and runs K4 (D = nope + rope, Dv = v_head_dim,
+as many kv heads as heads); decode and segments use the absorbed form
+(scores and values in the latent space), plain PyTorch in f32 as in the
+reference.  Rollback, truncation and the in-place rules are the GQA
+cache's: the same ``pos`` sentinel, the same ``seg_aux`` rows.
 
 The int8 KV cache (``init_attn_cache(quantized=True)``, the reference's
 Q-format cache): int8 ``k`` / ``v`` payloads with an int32 power-of-two
@@ -50,11 +59,15 @@ from repro_torch.models.layers import Spec, apply_rope, attn_norm_spec, pdot, rm
 
 __all__ = [
     "attn_specs",
+    "mla_specs",
     "attention_forward",
+    "mla_forward",
     "decode_attention",
     "decode_attention_multi",
     "init_attn_cache",
+    "init_mla_cache",
     "reset_attn_cache_slot",
+    "reset_mla_cache_slot",
     "truncate_attn_cache_slot",
 ]
 
@@ -67,6 +80,23 @@ def attn_specs(cfg: ModelConfig) -> dict:
         "wk": Spec((d, kv * hd), ("embed", "kv")),
         "wv": Spec((d, kv * hd), ("embed", "kv")),
         "wo": Spec((h * hd, d), ("heads", "embed")),
+    }
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    m = cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "norm": attn_norm_spec(d),
+        "wq_a": Spec((d, m.q_lora_rank), ("embed", None)),
+        "q_norm": Spec((m.q_lora_rank,), (None,), init="zeros"),
+        "wq_b": Spec((m.q_lora_rank, h * qk), (None, "heads")),
+        "wkv_a": Spec((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None)),
+        "kv_norm": Spec((m.kv_lora_rank,), (None,), init="zeros"),
+        "wkv_b": Spec((m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+                      (None, "heads")),
+        "wo": Spec((h * m.v_head_dim, d), ("heads", "embed")),
     }
 
 
@@ -100,6 +130,19 @@ def _q8(x: torch.Tensor, axes) -> Tuple[torch.Tensor, torch.Tensor]:
     return qt.q, qt.exp.reshape([x.shape[i] for i in keep])
 
 
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
+                   device=None) -> dict:
+    """Latent cache: ``ckv`` (B, L, kv_lora_rank), ``krope`` (B, L,
+    rope_dim), ``pos`` (B, L) at -1."""
+    device = resolve_device(device)
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "krope": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+    }
+
+
 def reset_attn_cache_slot(cache: dict, slot) -> dict:
     """Pristine fill of one batch slot, in place: payloads 0, the
     position sentinel -1 (so the next occupant cannot attend to the
@@ -107,6 +150,10 @@ def reset_attn_cache_slot(cache: dict, slot) -> dict:
     for k, v in cache.items():
         v[slot] = -1 if k == "pos" else 0
     return cache
+
+
+#: the MLA cache's reset is the GQA one (latent payloads, the same sentinel)
+reset_mla_cache_slot = reset_attn_cache_slot
 
 
 def truncate_attn_cache_slot(cache: dict, slot, keep_pos) -> dict:
@@ -321,4 +368,104 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
 
     out = pdot(out.reshape(B, S, cfg.n_heads * cfg.head_dim), params["wo"], mode,
                wq=params.get("wo_q"))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (MiniCPM3 latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_absorbed(q_nope, q_rope, ckv_c, kr_c, kp, positions, w_uk, w_uv):
+    """Absorbed-form attention of S queries against the latent cache, each
+    query masking keys by its own position: q_nope (B,S,H,nope), q_rope
+    (B,S,H,rope), cache rows ckv_c (B,L,r), kr_c (B,L,rope), kp (B,L)
+    -> (B,S,H,vd) f32."""
+    f32 = torch.float32
+    q_eff = torch.einsum("bshd,rhd->bshr", q_nope.to(f32), w_uk.to(f32))
+    s = torch.einsum("bshr,blr->bshl", q_eff, ckv_c.to(f32))
+    s = s + torch.einsum("bshd,bld->bshl", q_rope.to(f32), kr_c.to(f32))
+    # a true division, as the reference's (not a product by the reciprocal)
+    s = s / torch.full((), math.sqrt(q_nope.shape[-1] + q_rope.shape[-1]), dtype=f32,
+                       device=s.device)
+    valid = (kp[:, None, None, :] >= 0) & (kp[:, None, None, :] <= positions[:, :, None, None])
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bshl,blr->bshr", p, ckv_c.to(f32))
+    return torch.einsum("bshr,rhd->bshd", o_lat, w_uv.to(f32))
+
+
+def mla_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
+                mode: str = "precise", cache=None, prefill: bool = False,
+                lane_mask: Optional[torch.Tensor] = None,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                seg_aux: Optional[dict] = None):
+    """Multi-head latent attention, x (B,S,d) -> (out, cache), with the
+    cases and in-place rules of :func:`attention_forward`: prefill on K4
+    (latent expanded to per-head keys of nope + rope dims and values of
+    v_head_dim), decode and segments in the absorbed form.  ``rope``: the
+    pass's (sin, cos) tables of ``cfg.rope_dim``."""
+    B, S, _ = x.shape
+    m = cfg.mla
+    H = cfg.n_heads
+    nope, rope_d, vd, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+
+    h = rms_norm(x, params["norm"], cfg.rms_eps)
+    q_lat = rms_norm(pdot(h, params["wq_a"], mode, wq=params.get("wq_a_q")), params["q_norm"],
+                     cfg.rms_eps)
+    q = pdot(q_lat, params["wq_b"], mode, wq=params.get("wq_b_q")).reshape(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = pdot(h, params["wkv_a"], mode, wq=params.get("wkv_a_q"))
+    ckv = rms_norm(kv_a[..., :r], params["kv_norm"], cfg.rms_eps)
+    k_rope = kv_a[..., r:]                          # (B,S,rope) shared across heads
+
+    sin, cos = rope if rope is not None else rope_tables(positions, rope_d, cfg.rope_base, mode)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0]
+
+    w_b = params["wkv_b"].reshape(r, H, nope + vd)
+    w_uk, w_uv = w_b[..., :nope], w_b[..., nope:]
+    f32 = torch.float32
+
+    if cache is None or prefill:
+        k_nope = torch.einsum("bsr,rhd->bshd", ckv.to(f32), w_uk.to(f32)).to(x.dtype)
+        v = torch.einsum("bsr,rhd->bshd", ckv.to(f32), w_uv.to(f32)).to(x.dtype)
+        k_rope_b = k_rope[:, :, None, :].expand(B, S, H, rope_d).to(x.dtype)
+        k = torch.cat([k_nope, k_rope_b], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(q_full, k, v.contiguous(), causal=True)
+        if prefill:
+            for name, seg in (("ckv", ckv), ("krope", k_rope), ("pos", positions)):
+                cache[name][:, :S] = seg.to(cache[name].dtype)
+    else:
+        L = cache["ckv"].shape[1]
+        if S > L:
+            raise ValueError(f"segment length {S} exceeds cache length {L}")
+        slots = (positions % L).to(torch.long)                 # (B, S)
+        lanes = torch.arange(B, device=x.device)
+        if seg_aux is not None:
+            seg_aux["slot"] = slots
+            for name in cache:
+                seg_aux[name] = cache[name][lanes[:, None], slots]
+        rows = {"ckv": ckv, "krope": k_rope, "pos": positions}
+        for name, new in rows.items():
+            buf = cache[name]
+            new = new.to(buf.dtype)
+            if lane_mask is not None:
+                # S == 1: non-members keep their row
+                keep = lane_mask.to(torch.bool).reshape((B, 1) + (1,) * (new.ndim - 2))
+                new = torch.where(keep, new, buf[lanes[:, None], slots])
+            buf[lanes[:, None], slots] = new
+        out = _mla_absorbed(q_nope, q_rope, cache["ckv"], cache["krope"], cache["pos"],
+                            positions, w_uk, w_uv)
+        if lane_mask is not None:
+            # a non-member lane as the pristine view computes it: p = 1 on
+            # its own fresh row, so its latent output is that row
+            own = ckv.to(cache["ckv"].dtype).to(f32)[:, :, None, :].expand(B, S, H, r)
+            own = torch.einsum("bshr,rhd->bshd", own, w_uv.to(f32))
+            out = torch.where(lane_mask.to(torch.bool)[:, None, None, None], out, own)
+        out = out.to(x.dtype)
+
+    out = pdot(out.reshape(B, S, H * vd), params["wo"], mode, wq=params.get("wo_q"))
     return out, cache

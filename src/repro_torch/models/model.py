@@ -119,18 +119,25 @@ def cache_layout(cfg: ModelConfig, max_len: int):
 def truncate_cache_slot(pool: dict, cfg: ModelConfig, slot: int, keep_pos,
                         ssm_snapshot=None) -> dict:
     """Roll ONE batch slot of a stacked pool back, in place, so only
-    entries at positions ``< keep_pos`` survive (the others get the
-    pristine fill); returns ``pool``.  SSM caches need ``ssm_snapshot``
-    in the reference; the port has no SSM layers yet (ROADMAP.md queue 1
-    item 10), so a snapshot raises."""
-    if ssm_snapshot is not None:
-        raise NotImplementedError("SSM cache snapshots: ROADMAP.md queue 1 item 10")
+    entries at positions ``< keep_pos`` survive; returns ``pool``.
+    Position-indexed caches (attention, MLA) give the others the pristine
+    fill.  SSM caches are cumulative, so their rollback takes
+    ``ssm_snapshot``: ``pos{i} -> {"state", "conv"}`` with leaves
+    ``(n_periods, ...)``, the slot's contents as of ``keep_pos`` (for
+    example a candidate of :func:`segment_step`'s ``seg_aux``); without an
+    entry for an SSM layer it raises, as the reference does."""
     for i, spec in enumerate(cfg.period):
-        if spec.kind != "attn":
-            raise NotImplementedError(f"{spec.kind} caches: ROADMAP.md queue 1 item 10")
-        cache = pool[f"pos{i}"]
-        for p in range(cache["pos"].shape[0]):
-            attn.truncate_attn_cache_slot(tree_map(lambda c: c[p], cache), slot, keep_pos)
+        key = f"pos{i}"
+        cache = pool[key]
+        if spec.kind in ("attn", "mla"):
+            for p in range(cache["pos"].shape[0]):
+                attn.truncate_attn_cache_slot(tree_map(lambda c: c[p], cache), slot, keep_pos)
+            continue
+        if ssm_snapshot is None or key not in ssm_snapshot:
+            raise ValueError("truncate_cache_slot: SSM caches are cumulative and need an "
+                             f"ssm_snapshot entry for {key}")
+        for name, leaf in cache.items():
+            leaf[:, slot] = ssm_snapshot[key][name].to(leaf.dtype)
     return pool
 
 
@@ -190,9 +197,11 @@ def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
     """Walk the periods.  ``seg_aux``: a dict a segment pass fills with
     every layer's rollback state, stacked to leaves ``(n_periods, ...)``
     under ``pos{i}``."""
-    # every attention layer rotates by (head_dim, rope_base): one pair of
-    # tables a pass (one K3 launch on the FAST rung), not one a layer
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)
+    # every attention (MLA) layer rotates by (rope_dim, rope_base): one pair
+    # of tables a pass (one K3 launch on the FAST rung), not one a layer;
+    # an attention-free model builds none
+    rope = (rope_tables(positions, cfg.rope_dim, cfg.rope_base, mode)
+            if cfg.has_attention else None)
     per_period = []
     for i in range(cfg.n_periods):
         cache_i = None if caches is None else tree_map(lambda c: c[i], caches)
@@ -259,10 +268,13 @@ def segment_step(params: dict, tokens: torch.Tensor, positions: torch.Tensor, ca
     pass (the speculative verify, a chunk of the chunked prefill).
     Returns ``(logits (B,S,V) f32, caches, seg_aux)``: the caches, updated
     in place, hold the whole segment; ``seg_aux`` holds, per period
-    position ``pos{i}``, the slots the segment wrote (``slot`` (P,B,S))
-    and their pre-segment rows (``k``, ``v`` (P,B,S,KV,D), ``pos``
-    (P,B,S), and on an int8 cache ``k_exp``, ``v_exp`` (P,B,S,KV)), from
-    which :func:`commit_segment` rolls rejected rows back.
+    position ``pos{i}``, the slots an attention or MLA layer wrote
+    (``slot`` (P,B,S)) and their pre-segment rows (``k``, ``v``
+    (P,B,S,KV,D) or ``ckv``, ``krope``, and ``pos`` (P,B,S), and on an
+    int8 cache ``k_exp``, ``v_exp`` (P,B,S,KV)), and for an SSM layer the
+    per-position ``states``, the ``conv_hist`` and the pre-segment
+    ``state`` and ``conv``, from which :func:`commit_segment` rolls
+    rejected rows back.
     The logits are ``_head``'s per rung (the FAST final softcap on K5),
     the RoPE tables built once from the (B,S) positions (one K3 launch
     on the FAST rung).  ``lane_mask`` (B,) zeroes non-member lanes at the
@@ -292,15 +304,18 @@ def commit_segment(caches: dict, seg_aux: dict, cfg: ModelConfig, *, keep_pos, k
     that pool (the reference's ``after``) and restores those rows from
     the pre-segment rows ``seg_aux`` recorded (the only rows the segment
     changed, so the outcome equals the reference's leaf for leaf, wrapped
-    sliding-window slots included).  ``keep_pos`` (B,): last accepted
-    position; ``keep_count`` (B,): accepted positions, which only the
-    reference's SSM layers read; ``active`` (B,) bool."""
-    del keep_count  # the SSM rollback's (ROADMAP.md queue 1 item 10)
+    sliding-window slots included).  SSM layers are cumulative: an active
+    lane takes the state after its ``keep_count``-th position and the
+    conv rows ``[keep_count, keep_count + K - 1)`` of the conv history,
+    an inactive lane its pre-segment ``state`` and ``conv``.
+    ``keep_pos`` (B,): last accepted position; ``keep_count`` (B,):
+    accepted positions; ``active`` (B,) bool."""
     for i, spec in enumerate(cfg.period):
         key = f"pos{i}"
-        if spec.kind != "attn":
-            raise NotImplementedError(f"{spec.kind} caches: ROADMAP.md queue 1 item 10")
         cache, aux = caches[key], seg_aux[key]
+        if spec.kind == "mamba":
+            _commit_ssm(cache, aux, keep_count, active)
+            continue
         slots = aux["slot"]                                        # (P, B, S)
         P, B, S = slots.shape
         per = torch.arange(P, device=slots.device)[:, None, None]
@@ -315,3 +330,29 @@ def commit_segment(caches: dict, seg_aux: dict, cfg: ModelConfig, *, keep_pos, k
             mask = rejected.reshape(rejected.shape + (1,) * (cur.ndim - 3))
             buf[per, lanes, slots] = torch.where(mask, aux[name], cur)
     return caches
+
+
+def _commit_ssm(cache: dict, aux: dict, keep_count, active) -> None:
+    """The SSM branch of :func:`commit_segment` (the reference's
+    ``model.py:492-510``), in place.  An ``aux`` without ``states`` (a
+    speculative draft's save) offers no candidate: active lanes keep
+    their current leaves."""
+    B = aux["state"].shape[1]
+    dev = aux["state"].device
+    act = torch.as_tensor(active, device=dev).to(torch.bool).reshape(1, B)
+    if "states" not in aux:
+        sel, conv = cache["state"], cache["conv"]
+    else:
+        states = aux["states"]                                     # (P,B,S,nh,ds,hd)
+        conv_hist = aux["conv_hist"]                               # (P,B,K-1+S,C)
+        S = states.shape[2]
+        Km1 = conv_hist.shape[2] - S
+        kc = torch.as_tensor(keep_count, device=dev).to(torch.long).reshape(B)
+        lanes = torch.arange(B, device=dev)
+        sel = states[:, lanes, (kc - 1).clamp(0, S - 1)]           # (P,B,nh,ds,hd)
+        rows = kc.clamp(0, S)[:, None] + torch.arange(Km1, device=dev)[None]   # (B,K-1)
+        conv = conv_hist[:, lanes[:, None], rows]                  # (P,B,K-1,C)
+    cache["state"].copy_(torch.where(act[..., None, None, None], sel.to(cache["state"].dtype),
+                                     aux["state"]))
+    cache["conv"].copy_(torch.where(act[..., None, None], conv.to(cache["conv"].dtype),
+                                    aux["conv"]))

@@ -20,9 +20,13 @@ refcounts) is a near-copy; the device side differs where torch does:
   reads: masked lanes, shared pages and the zero page are scattered
   there (``scatter_ids``, ``commit_rows``), so a masked write costs no
   host sync.  Comparisons with the reference's pool skip it.
-* **no SSM state.** The slot-contiguous cumulative leaves (``slot``)
-  wait for the SSM layers, ROADMAP.md queue 1 item 10: a model with
-  them raises at build.
+* **SSM state.** The cumulative leaves stay slot-contiguous
+  (``state["slot"]``), as in the reference.  ``device_view`` and
+  ``slot_view`` hand out COPIES of them too, so a step run on a view
+  (a paged draft, whose view is dropped) never writes the pool;
+  ``commit_rows`` folds them back under the lane mask and
+  ``slot_commit`` writes the slot's.  A model with no position-indexed
+  cache at all (mamba2) has no page groups.
 """
 
 from __future__ import annotations
@@ -258,9 +262,10 @@ class PagedCachePool:
     """Fixed-size pages + free-list block tables (see the module docstring).
 
     Device state (from :meth:`alloc`): ``state["pages"][key][leaf]`` of
-    shape ``(n_periods, n_pages + 1, page_size, ...)`` for every cache
-    ``key`` (the last page is the sink), and ``state["slot"]`` (empty:
-    no SSM leaves yet).  Adapters: :meth:`device_view`,
+    shape ``(n_periods, n_pages + 1, page_size, ...)`` for every
+    position-indexed cache ``key`` (the last page is the sink), and
+    ``state["slot"][key][leaf]`` of shape ``(n_periods, n_slots, ...)``
+    for the cumulative SSM leaves.  Adapters: :meth:`device_view`,
     :meth:`commit_rows`, :meth:`slot_view`, :meth:`slot_commit`.  Host
     lifecycle: :meth:`prepare_admission`, :meth:`ensure_rows`,
     :meth:`finish_admission`, :meth:`free_slot`, :meth:`can_admit`.
@@ -279,15 +284,12 @@ class PagedCachePool:
         self.device = resolve_device(device)
         layout = cache_layout(cfg, max_len)
         self.slot_keys = [k for k, _, L in layout if L is None]
-        if self.slot_keys:
-            raise NotImplementedError(
-                f"cumulative (SSM) cache leaves {self.slot_keys} in the paged pool: "
-                "ROADMAP.md queue 1 item 10")
 
         # one allocator + one block table per cache length L
         by_len: Dict[int, List[str]] = {}
         for key, _, L in layout:
-            by_len.setdefault(L, []).append(key)
+            if L is not None:
+                by_len.setdefault(L, []).append(key)
         for L in by_len:
             if L % page_size:
                 raise ValueError(
@@ -295,7 +297,7 @@ class PagedCachePool:
                     "(sliding window shorter than a page? use a page_size that divides "
                     "the smallest window)")
 
-        self.shareable = bool(by_len) and set(by_len) == {max_len}
+        self.shareable = bool(by_len) and not self.slot_keys and set(by_len) == {max_len}
         if prefix_sharing and not self.shareable:
             raise ValueError(
                 "prefix_sharing requires a model whose caches are all full-context "
@@ -363,7 +365,11 @@ class PagedCachePool:
                     name: torch.full((shape[0], n, self.page_size) + tuple(shape[3:]),
                                      _fill(name), dtype=dt, device=self.device)
                     for name, (shape, dt) in self._templates[key].items()}
-        return {"pages": pages, "slot": {}}
+        slot = {key: {name: torch.zeros((shape[0], self.n_slots) + tuple(shape[2:]), dtype=dt,
+                                        device=self.device)
+                      for name, (shape, dt) in self._templates[key].items()}
+                for key in self.slot_keys}
+        return {"pages": pages, "slot": slot}
 
     def _dev(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -421,6 +427,8 @@ class PagedCachePool:
                     gathered = arr[:, t]  # (P, B, nb, ps, *tail)
                     view[key][name] = gathered.reshape(
                         gathered.shape[:2] + (g["L"],) + gathered.shape[4:])
+        for key in self.slot_keys:
+            view[key] = {name: arr.clone() for name, arr in state["slot"][key].items()}
         return view
 
     def commit_rows(self, state, tables, view, pos, mask, n_rows: int = 1):
@@ -428,7 +436,8 @@ class PagedCachePool:
         in place: row ``j`` of lane ``b`` at logical position ``pos[b] + j``
         (mod L for rolling windows).  Masked lanes write to the sink.  For
         the speculative verify the view's rejected rows carry their
-        restored pre-segment bits, so the scatter IS the page restore."""
+        restored pre-segment bits, so the scatter IS the page restore.
+        The SSM leaves of the mask's lanes are copied back whole."""
         ps = self.page_size
         pos = pos.to(torch.long)
         B = pos.shape[0]
@@ -443,6 +452,10 @@ class PagedCachePool:
             for key in g["keys"]:
                 for name, arr in state["pages"][key].items():
                     arr[:, pid, off] = view[key][name][:, lanes, idx].to(arr.dtype)
+        for key in self.slot_keys:
+            for name, arr in state["slot"][key].items():
+                m = mask.to(torch.bool).reshape((1, -1) + (1,) * (arr.ndim - 2))
+                arr.copy_(torch.where(m, view[key][name].to(arr.dtype), arr))
         return state
 
     def slot_view(self, state, slot_tables, slot: int):
@@ -457,6 +470,9 @@ class PagedCachePool:
                     gathered = arr[:, t]  # (P, nb, ps, *tail)
                     view[key][name] = gathered.reshape(
                         (gathered.shape[0], 1, g["L"]) + gathered.shape[3:])
+        for key in self.slot_keys:
+            view[key] = {name: arr[:, slot:slot + 1].clone()
+                         for name, arr in state["slot"][key].items()}
         return view
 
     def slot_commit(self, state, scatter_ids, slot: int, view):
@@ -472,6 +488,9 @@ class PagedCachePool:
                     v = view[key][name]  # (P, 1, L, *tail)
                     arr[:, sp] = v.reshape((v.shape[0], g["nb"], self.page_size)
                                            + v.shape[3:]).to(arr.dtype)
+        for key in self.slot_keys:
+            for name, arr in state["slot"][key].items():
+                arr[:, slot:slot + 1] = view[key][name].to(arr.dtype)
         return state
 
     # -- host lifecycle ------------------------------------------------------
@@ -547,8 +566,11 @@ class PagedCachePool:
     def prepare_admission(self, state, slot: int, prompt: Sequence[int]):
         """Prefix match + attach, then the rest of the prompt's blocks (plus
         the first decode block) fresh; a sliding-window group takes its
-        whole window.  Returns ``(state, matched_tokens, chain)``."""
+        whole window; the slot's SSM leaves start from zero (the chunked
+        prefill carries them from chunk to chunk).  Returns ``(state,
+        matched_tokens, chain)``."""
         plen = len(prompt)
+        self._zero_slot_leaves(state, slot)
         for g in self.groups.values():
             assert (g["table"][slot] == 0).all(), (
                 f"slot {slot} still holds pages — free_slot before re-admission")
@@ -630,8 +652,14 @@ class PagedCachePool:
     def read(self, state, slot):
         return self.slot_view(state, self.slot_tables(slot), slot)
 
+    def _zero_slot_leaves(self, state, slot: int) -> None:
+        for key in self.slot_keys:
+            for arr in state["slot"][key].values():
+                arr[:, slot] = 0
+
     def reset(self, state, slot):
         self.free_slot(slot)
+        self._zero_slot_leaves(state, slot)
         return state
 
     def snapshot(self, state, slot):

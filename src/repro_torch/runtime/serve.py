@@ -23,9 +23,10 @@ What is kept from the reference:
   every ``health_sync_every`` steps;
 * the paged pool's lifecycle: admission one request at a time under
   ``can_admit``, prefix match, chunked prefill in fixed ``(1, C)``
-  segments (``ceil(tail / C)`` chunks an admission), ``ensure_rows``
-  (allocation, copy-on-write) before every step, pages released at
-  eviction;
+  segments (``ceil(tail / C)`` chunks an admission; an SSM layer carries
+  its state from chunk to chunk through the segment recurrence),
+  ``ensure_rows`` (allocation, copy-on-write) before every step, pages
+  released and SSM lanes zeroed at eviction;
 * speculative requests: prefill at ``f32``, then rounds of k draft
   passes at the slot's DRAFT rung (a second ``SlotArbiter`` over
   ``SPEC_DRAFT_LEVELS``, escalated on sustained low acceptance) and one
@@ -40,7 +41,8 @@ detectors have no counterpart: ``retrace_total`` stays registered (the
 metric catalogue is unchanged) and is never incremented.  The KV pool
 is updated in place: admission prefills straight into the slot's rows
 (a view from ``cache_ops.read``), decode passes write only their member
-lanes' rows, eviction writes the pristine fill.  On the paged pool a
+lanes' rows (and SSM states), eviction writes the pristine fill (zero
+SSM state and conv history).  On the paged pool a
 tick gathers one view of the pool (a copy), runs every level's pass on
 it — each pass writes only its members' rows and computes the others as
 pristine, the reference's masked view — and scatters the active lanes'
@@ -374,7 +376,8 @@ class ContinuousBatchingServer:
                 # view; the ragged last chunk's pad rows are rolled back
                 def fn(params, tokens, positions, view, keep_pos, rows):
                     logits, _, aux = segment_step(params, tokens, positions, view, cfg, mode=mode)
-                    commit_segment(view, aux, cfg, keep_pos=keep_pos, keep_count=rows,
+                    commit_segment(view, aux, cfg, keep_pos=keep_pos,
+                                   keep_count=torch.full_like(keep_pos, rows),
                                    active=torch.ones_like(keep_pos, dtype=torch.bool))
                     return logits[:, rows - 1], view
                 return fn

@@ -20,7 +20,8 @@ place.  The reference drafts inside a jit and drops the draft's cache
 writes with it; here every draft pass writes rows ``(pos + j) % L``
 (j < k) of every lane of every attention cache.  On a contiguous pool
 the draft therefore saves those B x k rows a layer first (in
-``segment_step``'s ``seg_aux`` format) and writes them back after its
+``segment_step``'s ``seg_aux`` format; an SSM layer's whole ``state``
+and ``conv``, which every pass changes) and writes them back after its
 last pass, before the verify runs: otherwise the verify's ``seg_aux``
 would record draft-rung bits and the commit would "restore" rejected
 rows to them — and a rolling window's row ``(pos + j) % L`` past the
@@ -95,19 +96,26 @@ def _min_window(cfg: ModelConfig) -> Optional[int]:
 
 
 def _save_rows(caches: dict, pos: torch.Tensor, n: int) -> dict:
-    """The rows ``(pos + j) % L`` (j < n) of every lane of every attention
-    cache, in ``segment_step``'s ``seg_aux`` format (``slot`` (P,B,n) and
-    the ``k``, ``v``, ``pos`` rows), for ``commit_segment`` to write back."""
+    """What ``n`` draft passes from ``pos`` overwrite, in ``segment_step``'s
+    ``seg_aux`` format for ``commit_segment`` to write back: for every
+    position-indexed cache (attention, MLA) the rows ``(pos + j) % L``
+    (j < n) of every lane (``slot`` (P,B,n) and each leaf's rows); for
+    every SSM cache a copy of its ``state`` and ``conv`` (O(1) a slot:
+    the state is cumulative, so rows would not do), with no rollback
+    candidates: the commit of an inactive lane takes these leaves."""
     B = pos.shape[0]
     lanes = torch.arange(B, device=pos.device)[:, None]
     offs = torch.arange(n, device=pos.device)[None]
     saved = {}
     for key, cache in caches.items():
+        if "pos" not in cache:
+            saved[key] = {"state": cache["state"].clone(), "conv": cache["conv"].clone()}
+            continue
         P, _, L = cache["pos"].shape
         slots = (pos.to(torch.long)[:, None] + offs) % L                   # (B, n)
         saved[key] = {"slot": slots.expand(P, B, n)}
-        for name in ("k", "v", "pos"):
-            saved[key][name] = cache[name][:, lanes, slots]
+        for name, leaf in cache.items():
+            saved[key][name] = leaf[:, lanes, slots]
     return saved
 
 

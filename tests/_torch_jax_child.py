@@ -4,7 +4,8 @@ must be set before JAX starts, hence a process of its own), so every
 bf16 cast of the FAST rung rounds where the source says it does.
 
 Usage: XLA_FLAGS=--xla_allow_excess_precision=false \
-           python tests/_torch_jax_child.py OUT.npz [ARCH [model|segment|spec|paged|moe|serve|qkv]]
+           python tests/_torch_jax_child.py OUT.npz \
+               [ARCH [model|segment|spec|paged|moe|serve|qkv|ssm|mla|hybrid]]
 
 ARCH is ``deepseek_7b`` (default; tests/test_torch_model.py),
 ``gemma2_2b`` (tests/test_torch_gemma2.py) or, from the MoE slice,
@@ -37,6 +38,19 @@ teacher-forced decodes at the default mode, parameters from
 cache after a two-lane prefill of SEG_PROMPT (``int8/c1``), one decode
 (``int8/c2``), a segment of SEG_TOKENS from ``c1`` (``int8/seg``) and
 its commit with keep_count 3, lane 1 inactive (``int8/commit``).
+
+With ``ssm`` (mamba2_1_3b), ``mla`` (minicpm3_4b) or ``hybrid``
+(jamba_v01_52b; tests/test_torch_ssm.py, tests/test_torch_mla.py,
+tests/test_torch_hybrid_serving.py) it writes the model records above
+and the static server's tokens (``serve/batched``), and with ``ssm`` and
+``mla`` also the ``segment`` records below and layer 0's mixer
+(``ssm_forward`` / ``mla_forward``, the attached int8 weights) at every
+mode (MLA_MODES for ``mla``) on seeded inputs: a two-lane prefill of LAYER_X from a zero cache,
+one decode step of LAYER_X1 from that cache and a segment of LAYER_XS
+from it (``layer/{mode}/{prefill,decode,segment}/...``: the output and
+the cache after, the SSM segment's ``seg_aux`` too), and for ``ssm``
+the five input projections of LAYER_X (``layer/{mode}/proj/...``) and
+``_ssd_chunked`` / ``_ssd_segment`` on SSD_SHAPE inputs (``ssd/...``).
 
 With ``segment`` (tests/test_torch_segment.py) it writes instead an
 exact-rung two-lane prefill of SEG_PROMPT (``c1/...``), and from that
@@ -122,8 +136,21 @@ PAGED_WORKLOAD = (
 )
 PAGED_MAX_LEN = 32
 PAGED_PAGE_SIZE = 4
-#: (arch, mode) -> the test module that reads the run
+#: layer-level inputs of the ``ssm`` / ``mla`` records: (B, S, d_model)
+LAYER_X_SHAPE = (2, 12, 64)
+LAYER_SEG = 4
+LAYER_MODES = ("exact", "precise", "fast", "fast8")
+#: the ``mla`` layer records' modes: a FAST compile of the lone MLA layer
+#: takes ~12 s of the CPU (the model records hold the FAST rung)
+MLA_MODES = ("exact", "precise")
+#: (B, S, heads, head_dim, d_state) of the ``ssd`` records
+SSD_SHAPE = (2, 32, 3, 5, 7)
+SSD_CHUNK = 8
+#: (arch, mode) -> the test module (or modules) that read the run
 SHARED_RUNS = {
+    ("mamba2_1_3b", "ssm"): ("test_torch_ssm.py", "test_torch_hybrid_serving.py"),
+    ("minicpm3_4b", "mla"): ("test_torch_mla.py", "test_torch_hybrid_serving.py"),
+    ("jamba_v01_52b", "hybrid"): "test_torch_hybrid_serving.py",
     ("deepseek_7b", "paged"): "test_torch_paged_serving.py",
     ("deepseek_7b", "spec"): "test_torch_speculative.py",
     ("gemma2_2b", "spec"): "test_torch_speculative.py",
@@ -259,6 +286,79 @@ def moe(flat, cfg, params, pa):
             flat[f"{key}/{mode}/aux"] = np.asarray(aux)
 
 
+def layer_inputs():
+    """(LAYER_X, LAYER_X1, LAYER_XS) from seed 9."""
+    rng = np.random.default_rng(9)
+    B, S, d = LAYER_X_SHAPE
+    return tuple(rng.normal(size=(B, n, d)).astype(np.float32) for n in (S, 1, LAYER_SEG))
+
+
+def ssd_inputs():
+    """(x, dt, A, B, C, state0) of SSD_SHAPE from seed 10, the reference
+    test's ranges."""
+    rng = np.random.default_rng(10)
+    Bb, S, nh, hd, ds = SSD_SHAPE
+    return (rng.normal(0, 1, (Bb, S, nh, hd)).astype(np.float32),
+            rng.uniform(0.01, 0.2, (Bb, S, nh)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, (nh,)).astype(np.float32),
+            rng.normal(0, 1, (Bb, S, ds)).astype(np.float32),
+            rng.normal(0, 1, (Bb, S, ds)).astype(np.float32),
+            rng.normal(0, 1, (Bb, nh, ds, hd)).astype(np.float32))
+
+
+def mixer_layer(flat, cfg, pa, kind):
+    """The ``layer/...`` (and for ``ssm`` the ``ssd/...``) records of the
+    module docstring."""
+    from repro.models import attention, ssm
+    from repro.models.layers import pdot, rms_norm
+
+    p0 = jax.tree.map(lambda a: a[0], pa["periods"]["pos0"]["mixer"])
+    xs = layer_inputs()
+    B, S, _ = LAYER_X_SHAPE
+    pos = [jnp.broadcast_to(jnp.arange(a, b, dtype=jnp.int32)[None], (B, b - a))
+           for a, b in ((0, S), (S, S + 1), (S, S + LAYER_SEG))]
+    for mode in (LAYER_MODES if kind == "ssm" else MLA_MODES):
+        dt = jnp.float32 if mode == "exact" else jnp.bfloat16
+        x, x1, xseg = (jnp.asarray(v, dt) for v in xs)
+        if kind == "ssm":
+            def fwd(p, c, u, q, prefill, m=mode):
+                aux = {}
+                out, c = ssm.ssm_forward(p, u, cfg, mode=m, cache=c, prefill=prefill,
+                                         seg_aux=aux)
+                return out, c, aux
+            cache0 = ssm.init_ssm_cache(cfg, B)
+            h = rms_norm(x, p0["norm"], cfg.rms_eps)
+            for w in ("wz", "wx", "wB", "wC", "wdt"):
+                flat[f"layer/{mode}/proj/{w}"] = np.asarray(jax.jit(
+                    lambda h, m=mode, w=w: pdot(h, p0[w], m, wq=p0.get(w + "_q")))(h)
+                    .astype(jnp.float32))
+        else:
+            def fwd(p, c, u, q, prefill, m=mode):
+                out, c = attention.mla_forward(p, u, cfg, positions=q, mode=m, cache=c,
+                                               prefill=prefill)
+                return out, c, {}
+            cache0 = attention.init_mla_cache(cfg, B, 32, jnp.float32)
+        run = jax.jit(fwd, static_argnums=(4,))
+        out, c1, _ = run(p0, cache0, x, pos[0], True)
+        for name, (o, c, aux) in (("prefill", (out, c1, {})),
+                                  ("decode", run(p0, c1, x1, pos[1], False)),
+                                  ("segment", run(p0, c1, xseg, pos[2], False))):
+            flat[f"layer/{mode}/{name}/out"] = np.asarray(o.astype(jnp.float32))
+            _save(flat, f"layer/{mode}/{name}/cache", c)
+            # bf16 leaves widened (exactly) to f32: npz has no bf16
+            _save(flat, f"layer/{mode}/{name}/aux",
+                  {k: v.astype(jnp.float32) for k, v in aux.items()})
+    if kind == "ssm":
+        x, dt, A, Bm, Cm, s0 = (jnp.asarray(v) for v in ssd_inputs())
+        y, final = jax.jit(lambda *a: ssm._ssd_chunked(*a, chunk=SSD_CHUNK))(x, dt, A, Bm, Cm)
+        flat["ssd/chunked/y"], flat["ssd/chunked/final"] = np.asarray(y), np.asarray(final)
+        y, final = jax.jit(lambda *a: ssm._ssd_chunked(*a[:5], chunk=SSD_CHUNK,
+                                                       initial_state=a[5]))(x, dt, A, Bm, Cm, s0)
+        flat["ssd/carried/y"], flat["ssd/carried/final"] = np.asarray(y), np.asarray(final)
+        y, states = jax.jit(ssm._ssd_segment)(x[:, :5], dt[:, :5], A, Bm[:, :5], Cm[:, :5], s0)
+        flat["ssd/segment/y"], flat["ssd/segment/states"] = np.asarray(y), np.asarray(states)
+
+
 def serve(flat, cfg, params):
     """The ``serve`` records of the module docstring."""
     from repro.runtime.config import ServingConfig
@@ -320,6 +420,15 @@ def main(out, arch="deepseek_7b", what=""):
     pa = attach_quantized_weights(params, QuantizedWeightCache())
     for path, leaf in jax.tree_util.tree_flatten_with_path(pa)[0]:
         flat["param/" + "/".join(k.key for k in path)] = np.asarray(leaf)
+    if what in ("ssm", "mla", "hybrid"):
+        from repro.runtime.config import ServingConfig
+        from repro.runtime.serve import BatchedServer
+
+        srv = BatchedServer(cfg, params, ServingConfig(n_slots=1, max_len=64, max_new=4))
+        flat["serve/batched"] = np.asarray(srv.generate([BATCHED_PROMPT])[0], np.int32)
+        if what != "hybrid":
+            segments(flat, cfg, pa)
+            mixer_layer(flat, cfg, pa, what)
     if what in ("segment", "spec", "paged", "serve"):
         {"segment": lambda: segments(flat, cfg, pa), "spec": lambda: speculative(flat, cfg, params),
          "paged": lambda: paged(flat, cfg, params),
@@ -377,9 +486,9 @@ def start_shared(request, tmp_path_factory):
     out_dir.mkdir(exist_ok=True)
     collected = {item.path.name for item in request.session.items}
     env = dict(os.environ, XLA_FLAGS="--xla_allow_excess_precision=false", JAX_PLATFORMS="cpu")
-    for (arch, mode), module in SHARED_RUNS.items():
+    for (arch, mode), modules in SHARED_RUNS.items():
         out = out_dir / f"{arch}-{mode}.npz"
-        if module not in collected:
+        if not collected & ({modules} if isinstance(modules, str) else set(modules)):
             continue
         try:
             os.close(os.open(out_dir / f"{arch}-{mode}.claim", os.O_CREAT | os.O_EXCL))

@@ -697,3 +697,73 @@ def test_cuda_moe_fast_layer_two_grouped_launches(cuda, monkeypatch, arch):
     monkeypatch.setattr(moe_mod, "qmatmul_grouped", qmatmul_plain)
     want, _ = moe_mod.moe_forward(params, x, cfg, "fast")
     assert torch.equal(got, want)
+
+
+# slice 10's shapes: K1 at the SSM / MLA projections (N = 16, 64, 128, 288,
+# 3840), K4 at minicpm3-4b's MLA prefill (D = 96, Dv = 64, 40 over 40 heads)
+SLICE10_K1 = [(m, k, n) for m in (4, 33) for (k, n) in
+              ((2048, 128), (2048, 64), (4096, 16), (4096, 128), (2560, 288), (768, 3840))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", SLICE10_K1)
+def test_cuda_qmatmul_ssm_mla_projections_match_plain(cuda, M, K, N):
+    g = torch.Generator().manual_seed(M * K + N)
+    a = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8).to(cuda)
+    b = torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8).to(cuda)
+    ea = torch.tensor([-9], dtype=torch.int32, device=cuda)
+    eb = torch.randint(-12, -4, (N,), generator=g, dtype=torch.int32).to(cuda)
+    assert torch.equal(qmatmul(a, b, ea, eb), qmatmul_plain(a, b, ea, eb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [17, 480])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_flash_mla_heads_match_plain(cuda, S, dt):
+    g = torch.Generator().manual_seed(S + 96)
+    q, k = (torch.randn(1, S, 40, 96, generator=g).to(cuda, dt) for _ in range(2))
+    v = torch.randn(1, S, 40, 64, generator=g).to(cuda, dt)
+    got, want = flash_attention(q, k, v).float(), flash_attention_plain(q, k, v).float()
+    assert got.shape == (1, S, 40, 64)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    else:
+        assert bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "jamba_v01_52b", "minicpm3_4b"])
+def test_cuda_ssm_mla_speculative_serving_and_draft_restore(cuda, arch, cache):
+    """The smoke SSM / MLA models on the card: speculative serving gives
+    vanilla f32 serving's tokens on both pools, and the contiguous draft
+    leaves the pool (SSM states included) bit for bit as it found it."""
+    from repro_torch.configs import smoke
+    from repro_torch.models import init_caches, init_params, prefill_step
+    from repro_torch.runtime import ContinuousBatchingServer, ServingConfig, SpeculativeConfig
+
+    cfg = smoke(arch)
+    params = init_params(cfg, seed=5, device=cuda)
+    kw = dict(cache="paged", page_size=4) if cache == "paged" else {}
+    spec = SpeculativeConfig(k=3, draft_level="q16_16", max_len=64)
+    srv = ContinuousBatchingServer(cfg, params, ServingConfig(n_slots=3, max_len=64,
+                                                              speculative=spec, **kw),
+                                   device=cuda)
+    prompts = [[(5 * i + j) % 120 + 1 for j in range(6 + 4 * i)] for i in range(4)]
+    got = srv.generate(prompts, max_new=10, speculative=True)
+    want = ContinuousBatchingServer(cfg, params, ServingConfig(n_slots=3, max_len=64, **kw),
+                                    device=cuda).generate(prompts, max_new=10, level="f32")
+    assert got == want and srv.stats["spec_rounds"] > 0
+    if cache == "contiguous":
+        pool = init_caches(cfg, 2, 64, device=cuda)
+        toks = torch.tensor(prompts[0][:6], dtype=torch.int32, device=cuda)
+        for i in range(2):
+            view = {k: {n: v[:, i:i + 1] for n, v in node.items()} for k, node in pool.items()}
+            prefill_step(srv.params, toks[None] + i, view, cfg, mode="exact")
+        before = {k: {n: v.clone() for n, v in node.items()} for k, node in pool.items()}
+        tok = torch.tensor([3, 4], dtype=torch.int32, device=cuda)
+        pos = torch.tensor([6, 6], dtype=torch.int32, device=cuda)
+        srv._spec_draft[1](srv.params, tok, pos, pool, torch.tensor([True, False], device=cuda))
+        for k, node in pool.items():
+            for n, v in node.items():
+                assert torch.equal(v, before[k][n]), (k, n)

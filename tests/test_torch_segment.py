@@ -287,8 +287,10 @@ def test_int8_kv_cache_and_ssm_snapshots_raise_naming_their_items(port):
     a segment on it writes quantized rows with their exponents, records
     the exponent rows for the rollback, and a commit that rejects every
     row restores the cache bit for bit (JAX's int8 segment:
-    tests/test_torch_quantized_kv.py).  SSM snapshots still raise naming
-    item 10."""
+    tests/test_torch_quantized_kv.py).  SSM snapshots are ported (item
+    10, tests/test_torch_ssm.py): on a model without SSM layers a
+    snapshot is unused, as in the reference, and the truncation is the
+    one without it."""
     p = port["deepseek_7b"]
     cfg = p["cfg"]
     caches = tm.init_caches(cfg, 2, 32, device="cpu", quantized=True)
@@ -302,5 +304,8 @@ def test_int8_kv_cache_and_ssm_snapshots_raise_naming_their_items(port):
                       keep_count=None, active=torch.ones(2, dtype=torch.bool))
     for name, leaf in before["pos0"].items():
         assert torch.equal(after["pos0"][name], leaf), name
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tm.truncate_cache_slot(_clone(p["c1"]), p["cfg"], 0, 3, ssm_snapshot={})
+    with_snapshot = tm.truncate_cache_slot(_clone(p["c1"]), p["cfg"], 0, 3, ssm_snapshot={})
+    without = tm.truncate_cache_slot(_clone(p["c1"]), p["cfg"], 0, 3)
+    for key, node in without.items():
+        for name, leaf in node.items():
+            assert torch.equal(with_snapshot[key][name], leaf), (key, name)
