@@ -161,7 +161,33 @@ Phases, each printing JSON lines:
    held to vanilla ``f32`` by the near-tie rule; K1's and K2's plain
    versions must never run.  The kernels phase adds K1 at their
    projections (SLICE10_K1), K2 and the grouped entries at jamba's widths,
-   K4 at D = 96, Dv = 64 and K3 at 16 frequencies.
+   K4 at D = 96, Dv = 64 and K3 at 16 frequencies;
+12. (slice 11, in the kernels phase) K4's autograd Function: dq, dk, dv
+   of bf16 operands (S = 17, 129, 1000; D = 64, 128, 256; 4 heads over
+   2; without and with a window and softcap 50) within 1e-2 of each
+   gradient's norm of f64 autograd through ``flash_attention_plain``,
+   and forward + backward timed at gemma2-2b's training layer (S = 4096,
+   8 over 4 heads of 256, cap 50) and at 32 x 128 beside SDPA's forward
+   + backward;
+13. gemma2-2b trained at full size by the ``Trainer`` (B = 1, S = 4096 of
+   ``SyntheticLM``, checkpoints off): 3 steps at ``q16_16``,
+   ``engine.set_level("f32")``, 3 more; every step's loss and grad norm
+   finite, the parameters moved, step 0's ``q16_16`` loss within 0.5 of
+   the ``f32`` loss on its batch, every step launching exactly
+   :func:`train_step_launches` (K1, K3, K4, K5; remat's recompute
+   counted; K2 never) and no plain version; step seconds, tokens/s and
+   peak GB per rung;
+14. the resume check on the card: gemma2's smoke config crashed at step
+   10 and restarted from its checkpoint gives an uninterrupted run's
+   losses for steps 10-15 within rel 1e-5 (retried under
+   ``torch.use_deterministic_algorithms`` only if it fails, and then
+   reported);
+15. the modality stubs at full size, phi3-vision-4.2b (32 layers, d 3072,
+   head_dim 96, prefix 576) and musicgen-large (48 layers, d 2048,
+   head_dim 64, prefix 256): a 1000-token prefill with seeded
+   ``extra_embeds`` and 16 greedy decodes at both rungs, exact launches a
+   pass, finite logits, the prefix moving the logits, and without it the
+   text model's logits bit for bit.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -3158,6 +3184,401 @@ def minicpm3_phase(seed: int, strict: bool):
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+# phases 12-15 (slice 11): K4's gradient, training gemma2-2b at full size,
+# resume on the card, the modality stubs at full size
+# ---------------------------------------------------------------------------
+
+#: K4 gradient cases: (S, D) with GQA 4 heads over 2, bf16, each without
+#: and with a window and score softcap
+K4_GRAD_S, K4_GRAD_D = (17, 129, 1000), (64, 128, 256)
+#: relative bound on ||d - d_ref|| / ||d_ref|| for dq, dk and dv (bf16
+#: operands and cotangent; the Function's f32 backward against f64
+#: autograd through the plain version)
+K4_GRAD_TOL = 1e-2
+#: (label, H, KV, D, softcap) of the timed forward + backward at S = 4096:
+#: gemma2-2b's training layer (no library: SDPA has no softcap) and a
+#: 32 x 128 layer without a cap beside SDPA's forward + backward
+K4_GRAD_TIMED = (("gemma2_2b_train", 8, 4, 256, 50.0), ("32x128", 32, 32, 128, None))
+TRAIN_SEQ, TRAIN_STEPS = 4096, 3
+#: the resume check: gemma2's smoke config, crash at 10, 16 steps
+RESUME_CRASH, RESUME_STEPS, RESUME_RTOL = 10, 16, 1e-5
+STUB_PROMPT, STUB_DECODES = 1000, 16
+
+
+def _has_train() -> bool:
+    """False only for a --root checkout older than the training slice."""
+    from repro_torch.kernels import flashattn
+
+    return hasattr(flashattn, "FlashAttentionFn")
+
+
+def _rel_err(got, want) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30)).item()
+
+
+def check_flash_grad(gen) -> dict:
+    """K4's autograd Function: dq, dk, dv against f64 autograd through
+    ``flash_attention_plain`` on the card (K4_GRAD_S x K4_GRAD_D, GQA,
+    without and with window and cap, bf16), then forward + backward timed
+    at K4_GRAD_TIMED; returns the timed records."""
+    import torch
+
+    from repro_torch.kernels.flashattn import flash_attention, flash_attention_plain
+
+    dev = torch.device(DEVICE)
+    worst = 0.0
+    for s in K4_GRAD_S:
+        for d in K4_GRAD_D:
+            for window, cap in ((None, None), (s // 3 + 1, 50.0)):
+                q, k, v, g = (torch.randn(1, s, h, d, generator=gen).to(dev, torch.bfloat16)
+                              for h in (4, 2, 2, 4))
+                q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+                kw = dict(window=window, softcap=cap)
+                before = flash_attention.launches
+                got = torch.autograd.grad(flash_attention(q, k, v, **kw), (q, k, v), g)
+                require(flash_attention.launches == before + 1,
+                        "K4's autograd Function did not launch K4")
+                ref_in = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+                want = torch.autograd.grad(flash_attention_plain(*ref_in, **kw), ref_in,
+                                           g.double())
+                errs = [_rel_err(a, b) for a, b in zip(got, want)]
+                case = f"S={s} H=4 KV=2 D={d} bf16 window={window} softcap={cap}"
+                require(all(math.isfinite(e) and e <= K4_GRAD_TOL for e in errs),
+                        f"K4 gradient {case}: rel errors (dq, dk, dv) {errs} above "
+                        f"{K4_GRAD_TOL}")
+                worst = max(worst, *errs)
+    emit({"phase": "kernels", "kernel": "flash_attention_grad", "cases": len(K4_GRAD_S) *
+          len(K4_GRAD_D) * 2, "worst_rel_err": worst,
+          "tolerance": f"||d - d_ref|| <= {K4_GRAD_TOL} ||d_ref|| for dq, dk, dv"})
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    S = TRAIN_SEQ
+    for label, h, kv, d, cap in K4_GRAD_TIMED:
+        q = torch.randn(1, S, h, d, generator=gen).to(dev, torch.bfloat16).requires_grad_(True)
+        k = torch.randn(1, S, kv, d, generator=gen).to(dev, torch.bfloat16).requires_grad_(True)
+        v = torch.randn(1, S, kv, d, generator=gen).to(dev, torch.bfloat16).requires_grad_(True)
+        g = torch.randn(1, S, h, d, generator=gen).to(dev, torch.bfloat16)
+
+        def fwd_bwd(fn=flash_attention):
+            return torch.autograd.grad(fn(q, k, v, softcap=cap), (q, k, v), g)
+
+        rec = {"name": "flash_attention_fwd_bwd", "case": f"{label}: B=1 S={S} H={h} KV={kv} "
+               f"D={d} bf16 causal softcap={cap}",
+               "ms": time_ms(fwd_bwd, iters=5, warmup=2),
+               "plain_ms": time_ms(lambda: fwd_bwd(flash_attention_plain), iters=2, warmup=1)}
+        if cap is None:
+            qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            gt = g.transpose(1, 2).contiguous()
+            rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), gt), iters=5, warmup=2)
+            rec["library"] = "torch.nn.functional.scaled_dot_product_attention forward + backward"
+        else:
+            rec["library_ms"] = None   # SDPA has no score softcap
+        pairs = S * (S + 1) // 2
+        # forward QK^T and PV, backward dV, dP, dQ, dK: 6 (D + Dv) operations a
+        # pair and head; q, k, v, dO read once, out, dq, dk, dv written once
+        rec["bound_ms"], rec["bound_by"] = bound_ms(2 * (S * h * 4 * d + S * kv * 4 * d),
+                                                    6.0 * h * pairs * 2 * d, "bf16")
+        emit({"phase": "kernels", **rec})
+        out[label] = rec
+        del q, k, v, g
+    return out
+
+
+def train_step_launches(cfg, seq: int, fast: bool) -> dict:
+    """Kernel launches of one training step of ``cfg`` at sequence length
+    ``seq``, remat on (every period's forward runs twice: once forward,
+    once recomputed in the backward; each CE chunk's too):
+
+    * K1: 2 x (4 attention + 3 MLP projections) a layer (FAST only);
+    * K4: 2 a layer (the bf16 forward and its recompute, both rungs);
+    * K5: 2 a MLP layer (FAST ``psilu``) + 2 a CE chunk of 256 when the
+      model has a final softcap (FAST only);
+    * K3: 1 (the RoPE tables, once a step, outside the checkpoints; FAST);
+    * K2 and the grouped entries: 0 (training keeps the unfused MLP)."""
+    k1 = k4 = mlp = 0
+    for sp in cfg.period:
+        k1 += 4 * (sp.kind == "attn") + 3 * (sp.ffn == "mlp")
+        k4 += sp.kind == "attn"
+        mlp += sp.ffn == "mlp"
+    n = cfg.n_periods
+    chunks = -(-seq // 256) if cfg.final_softcap else 0
+    f = int(fast)
+    return {"qmatmul": f * 2 * n * k1, "flash_attention": 2 * n * k4,
+            "universal_unary": f * (2 * n * mlp + 2 * chunks), "cordic_sincos": f,
+            "fused_swiglu": 0, **{g: 0 for g in GROUPED}}
+
+
+TRAIN_FORMULA = ("K1 = 2 x 7 x n_layers (FAST), K4 = 2 x n_layers, K5 = 2 x n_layers + "
+                 "2 x ceil(S / 256) (FAST, final softcap), K3 = 1 (FAST), K2 = 0")
+
+
+def _count_plain_k4(counts: dict):
+    """Also count calls of K4's plain version; returns the undo."""
+    from repro_torch.kernels.flashattn import flashattn as fa
+
+    orig = fa.flash_attention_plain
+
+    def wrapper(*args, **kw):
+        counts["flash_attention_plain"] = counts.get("flash_attention_plain", 0) + 1
+        return orig(*args, **kw)
+
+    fa.flash_attention_plain = wrapper
+    return lambda: setattr(fa, "flash_attention_plain", orig)
+
+
+def train_phase(seed: int, strict: bool):
+    """gemma2-2b at full size: the Trainer on SyntheticLM, B = 1,
+    S = TRAIN_SEQ, TRAIN_STEPS steps at ``q16_16``, ``set_level("f32")``,
+    TRAIN_STEPS more, checkpoints off."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models.model import train_loss
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_config("gemma2_2b")
+    dev = torch.device(DEVICE)
+    sync = torch.cuda.synchronize
+    n_steps = 2 * TRAIN_STEPS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckdir:
+        trainer = Trainer(cfg, TrainerConfig(total_steps=n_steps, ckpt_every=0, ckpt_dir=ckdir,
+                                             start_mode="q16_16", seed=seed),
+                          AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=n_steps),
+                          DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1,
+                                     seed=seed),
+                          device=dev)
+        sync()
+        setup_s = time.perf_counter() - t0
+        def watched():
+            return {"embed": trainer.params["embed"][:8],
+                    "wq": trainer.params["periods"]["pos0"]["mixer"]["wq"][0, :8]}
+
+        before = {k: v.detach().clone() for k, v in watched().items()}
+        batch0 = {k: torch.from_numpy(v).to(dev) for k, v in trainer.data.batch(0).items()}
+        with torch.no_grad():
+            loss_f32_step0 = float(train_loss(trainer.params, batch0, cfg, mode="precise")[0])
+        del batch0
+        steps, paths = [], {}
+        plain: dict = {}
+        undo = [_count_plain(plain), _count_plain_k4(plain)]
+        try:
+            for s in range(n_steps):
+                level = "q16_16" if s < TRAIN_STEPS else "f32"
+                switch_us = trainer.engine.set_level(level) if s == TRAIN_STEPS else None
+                _reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                sync()
+                t1 = time.perf_counter()
+                trainer.tcfg.total_steps, trainer.start_step = s + 1, s
+                trainer.run()
+                sync()
+                dt = time.perf_counter() - t1
+                counts = _launch_counts()
+                h = trainer.history[-1]
+                want = train_step_launches(cfg, TRAIN_SEQ, level == "q16_16")
+                got = {k: counts[k] for k in want}
+                rec = {"step": s, "level": h["level"], "loss": h["loss"],
+                       "grad_norm": h["grad_norm"], "step_s": dt, "tokens_per_s": TRAIN_SEQ / dt,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": got, "want_launches": want, "formula": TRAIN_FORMULA}
+                if switch_us is not None:
+                    rec["switch_us"] = switch_us
+                emit({"phase": "gemma2_2b_train", **rec})
+                require(h["level"] == level, f"train step {s} ran at {h['level']}, want {level}")
+                require(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+                        f"train step {s}: loss {h['loss']} grad norm {h['grad_norm']}")
+                require(got == want, f"train step {s} ({level}) launched {got}, want {want} "
+                        f"({TRAIN_FORMULA})")
+                steps.append(rec)
+                key = f"train_{level}"
+                paths[key] = {k: paths.get(key, {}).get(k, 0) + counts[k] for k in counts}
+        finally:
+            for u in undo:
+                u()
+        require(not plain, f"training reached plain versions on the card: {plain}")
+        changed = {k: not torch.equal(before[k], v) for k, v in watched().items()}
+        require(all(changed.values()), f"training left parameters unchanged: {changed}")
+        gap = abs(steps[0]["loss"] - loss_f32_step0)
+        require(gap < 0.5, f"step 0's q16_16 loss {steps[0]['loss']} and f32 loss "
+                f"{loss_f32_step0} differ by {gap} (bound 0.5)")
+        rungs = {}
+        for lv in ("q16_16", "f32"):
+            rs = [r for r in steps if r["level"] == lv]
+            warm = rs[1:] or rs
+            rungs[lv] = {"step_s": [r["step_s"] for r in rs],
+                         "mean_step_s_after_first": sum(r["step_s"] for r in warm) / len(warm),
+                         "tokens_per_s_after_first": TRAIN_SEQ * len(warm) /
+                         sum(r["step_s"] for r in warm),
+                         "peak_mem_gb": max(r["peak_mem_gb"] for r in rs),
+                         "launches_per_step": rs[0]["launches"]}
+        emit({"phase": "gemma2_2b_train", "config": f"{cfg.name}: {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}",
+              "batch": 1, "seq": TRAIN_SEQ,
+              "setup_s": setup_s,
+              "loss_step0": {"q16_16": steps[0]["loss"], "f32": loss_f32_step0, "gap": gap},
+              "rungs": rungs})
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def resume_phase(seed: int, strict: bool):
+    """gemma2's smoke config on the card: crash at RESUME_CRASH, restart
+    from the newest checkpoint, and the losses of steps RESUME_CRASH..15
+    equal to an uninterrupted run's within rel RESUME_RTOL.  Run as is;
+    only if that fails, again under ``torch.use_deterministic_algorithms``
+    (reported)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import smoke
+    from repro_torch.runtime import InjectedFailure, Trainer, TrainerConfig
+
+    cfg = smoke("gemma2_2b")
+    dev = torch.device(DEVICE)
+
+    def trainer(d, **kw):
+        return Trainer(cfg, TrainerConfig(total_steps=RESUME_STEPS, ckpt_every=4, ckpt_dir=d,
+                                          seed=seed, **kw), device=dev)
+
+    def attempt():
+        with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
+            try:
+                trainer(a, crash_at_step=RESUME_CRASH).run()
+                raise Failure("the injected failure did not fire")
+            except InjectedFailure:
+                pass
+            t2 = trainer(a)
+            require(t2.start_step == 8, f"resume started at {t2.start_step}, want 8")
+            resumed = {h["step"]: h["loss"] for h in t2.run()["history"]}
+            ref = {h["step"]: h["loss"] for h in trainer(b).run()["history"]}
+        return {s: (resumed[s], ref[s]) for s in range(RESUME_CRASH, RESUME_STEPS)}
+
+    _reset_launch_counts()
+    pairs = attempt()
+    deterministic = False
+    ok = all(abs(r - w) <= RESUME_RTOL * abs(w) for r, w in pairs.values())
+    if not ok:
+        deterministic = True
+        torch.use_deterministic_algorithms(True)
+        try:
+            pairs = attempt()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    worst = max(abs(r - w) / abs(w) for r, w in pairs.values())
+    emit({"phase": "gemma2_2b_resume", "losses": {s: list(p) for s, p in pairs.items()},
+          "worst_rel": worst, "bound_rel": RESUME_RTOL,
+          "deterministic_algorithms": deterministic})
+    require(worst <= RESUME_RTOL, f"resumed losses differ from the uninterrupted run by "
+            f"{worst} (rel bound {RESUME_RTOL})")
+    return {"resume": _launch_counts()}
+
+
+def stub_phase(name: str, seed: int, strict: bool):
+    """A modality stub at full size: a STUB_PROMPT-token prefill with
+    seeded ``extra_embeds`` (normal, std 0.02) at both rungs, then
+    STUB_DECODES greedy decodes; exact launches a pass, finite logits,
+    the prefix moving the logits, and without it the text model's logits
+    bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import QuantizedWeightCache
+    from repro_torch.models.layers import attach_quantized_weights
+
+    cfg = get_config(name)
+    dev = torch.device(DEVICE)
+    sync = torch.cuda.synchronize
+    torch.cuda.reset_peak_memory_stats()
+    params = tm.init_params(cfg, seed=seed, device=dev)
+    pa = attach_quantized_weights(params, QuantizedWeightCache())
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, STUB_PROMPT))).to(dev)
+    extra = torch.from_numpy(rng.normal(0, 0.02, (1, cfg.stub_prefix_len, cfg.d_model))
+                             .astype(np.float32)).to(dev)
+    text_cfg = dataclasses.replace(cfg, stub_prefix_len=0, modality_stub=None)
+    max_len = STUB_PROMPT + STUB_DECODES
+    want_pass = fast_pass_launches(cfg)
+    paths, rec = {}, {"phase": name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "head_dim": cfg.head_dim, "prefix": cfg.stub_prefix_len,
+                      "prompt": STUB_PROMPT}
+    plain: dict = {}
+    undo = _count_plain(plain)
+    try:
+        for lv, mode in (("q16_16", "fast"), ("f32", "exact")):
+            p = pa if mode == "fast" else params
+            _reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            logits, caches = tm.prefill_step(p, prompt, tm.init_caches(cfg, 1, max_len,
+                                                                        device=dev),
+                                             cfg, mode=mode, extra_embeds=extra)
+            sync()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            pre = _launch_counts()
+            exp = {k: (v if mode == "fast" else 0) for k, v in want_pass.items()}
+            got = {k: pre[k] for k in exp}
+            require(got == exp and pre["flash_attention"] == cfg.n_layers,
+                    f"{name}: a {lv} prefill launched {got}, K4 {pre['flash_attention']}; "
+                    f"want {exp}, K4 {cfg.n_layers}")
+            total = dict(pre)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            finite = bool(torch.isfinite(logits).all())
+            t0 = time.perf_counter()
+            for i in range(STUB_DECODES):
+                _reset_launch_counts()
+                pos = torch.full((1,), STUB_PROMPT + i, dtype=torch.int32, device=dev)
+                ld, caches = tm.decode_step(p, tok, pos, caches, cfg, mode=mode)
+                dec = _launch_counts()
+                got = {k: dec[k] for k in exp}
+                require(got == exp and dec["flash_attention"] == 0,
+                        f"{name}: a {lv} decode launched {got}, K4 {dec['flash_attention']}")
+                total = {k: total[k] + dec[k] for k in total}
+                finite &= bool(torch.isfinite(ld).all())
+                tok = torch.argmax(ld, dim=-1)[:, None].to(torch.int32)
+            sync()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / STUB_DECODES
+            paths[f"serve_{lv}"] = total
+            require(finite, f"{name}: non-finite logits at {lv}")
+            text = tm.prefill_step(p, prompt, tm.init_caches(cfg, 1, max_len, device=dev), cfg,
+                                   mode=mode)[0]
+            plain_text = tm.prefill_step(p, prompt, tm.init_caches(text_cfg, 1, max_len,
+                                                                   device=dev),
+                                         text_cfg, mode=mode)[0]
+            moved = (logits - text).abs().max().item()
+            require(torch.equal(text, plain_text),
+                    f"{name}: without extra_embeds the {lv} logits differ from the text model's")
+            require(moved > 0, f"{name}: extra_embeds did not move the {lv} logits")
+            rec[lv] = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                       "launches_per_prefill": dict(pre),
+                       "prefix_moves_logits_by": moved}
+            del caches
+    finally:
+        undo()
+    require(not plain, f"{name}: plain versions ran on the card: {plain}")
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(rec)
+    del params, pa
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 REPLACES = {
     "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
@@ -3255,6 +3676,10 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     torch.cuda.reset_peak_memory_stats()
     records = check_kernels(gen, strict=root == ROOT)
+    if _has_train():
+        check_flash_grad(gen)
+    else:
+        require(root != ROOT, "K4's autograd Function (the training slice) is missing")
     emit({"phase": "kernels", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "elapsed_s": time.perf_counter() - t_start})
     by_path, by_entry = {}, {}
@@ -3279,6 +3704,12 @@ def main(argv=None) -> int:
                        ("minicpm3_4b", minicpm3_phase)]
         else:
             require(root != ROOT, "the SSM / MLA slice's configs are missing")
+        if _has_train():
+            models += [("gemma2_2b", train_phase), ("gemma2_2b", resume_phase),
+                       ("phi3_vision_4_2b", lambda s, strict: stub_phase("phi3_vision_4_2b", s,
+                                                                         strict)),
+                       ("musicgen_large", lambda s, strict: stub_phase("musicgen_large", s,
+                                                                       strict))]
         for model, phase in models:
             gc.collect()
             torch.cuda.empty_cache()

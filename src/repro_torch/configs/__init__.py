@@ -6,9 +6,10 @@ global sliding-window periods, score and final softcaps, tied
 embeddings), command_r_35b (dense, tied embeddings), the
 Mixture-of-Experts decoders granite_moe_3b_a800m and mixtral_8x22b
 (sliding window 4096), the attention-free SSD model mamba2_1_3b, the
-hybrid jamba_v01_52b (attention, mamba, MLP and MoE in a period of 8)
-and the MLA decoder minicpm3_4b.  ``get_config`` raises
-``NotImplementedError`` naming the ROADMAP item for the modality stubs.
+hybrid jamba_v01_52b (attention, mamba, MLP and MoE in a period of 8),
+the MLA decoder minicpm3_4b and the two modality stubs phi3_vision_4_2b
+and musicgen_large (dense backbones whose first ``stub_prefix_len``
+positions take precomputed patch or frame embeddings).
 """
 
 from __future__ import annotations
@@ -31,13 +32,10 @@ ARCH_IDS = (
 )
 
 PORTED = ("deepseek_7b", "gemma2_2b", "command_r_35b", "granite_moe_3b_a800m", "mixtral_8x22b",
-          "mamba2_1_3b", "jamba_v01_52b", "minicpm3_4b")
+          "mamba2_1_3b", "jamba_v01_52b", "minicpm3_4b", "phi3_vision_4_2b", "musicgen_large")
 
-#: where each family not ported yet stands in ROADMAP.md
-_WAITING = {
-    "phi3_vision_4_2b": "queue 1 item 10 (modality stubs)",
-    "musicgen_large": "queue 1 item 10 (modality stubs)",
-}
+#: where each family not ported yet stands in ROADMAP.md (none is left)
+_WAITING: dict = {}
 
 _ALIASES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",

@@ -10,11 +10,10 @@ C4  runtime precision switching        -> precision.py / barrier.py
       + dynamic arbitration            -> arbiter.py
 Tensor-scale Q formats                 -> quantization.py
 
-Not here yet: ``PrecisionContext`` (the engine dispatches through
-per-level tables instead), the float-boundary CORDIC functions
+Not here: ``PrecisionContext`` (the engine dispatches through
+per-level tables instead) and the float-boundary CORDIC functions
 (``cordic_atan2`` and family: the engine's ops, in
-``kernels.cordic.ops``), and ``quantize_q16`` / ``compress_with_feedback``
-(ROADMAP.md queue 1 item 12).
+``kernels.cordic.ops``).
 """
 
 from repro_torch.core.arbiter import (
@@ -79,8 +78,10 @@ from repro_torch.core.qformat import (
 from repro_torch.core.quantization import (
     QTensor,
     QuantizedWeightCache,
+    compress_with_feedback,
     dequantize_pow2,
     quantize_pow2,
+    quantize_q16,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

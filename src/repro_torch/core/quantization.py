@@ -19,6 +19,8 @@ __all__ = [
     "QTensor",
     "quantize_pow2",
     "dequantize_pow2",
+    "quantize_q16",
+    "compress_with_feedback",
     "QuantizedWeightCache",
 ]
 
@@ -83,6 +85,28 @@ def quantize_pow2(x: torch.Tensor, bits: int = 8, axis: Axis = None) -> QTensor:
 def dequantize_pow2(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Exact shift-only dequantization: ``q * 2.0**exp``."""
     return qt.q.to(dtype) * torch.exp2(qt.exp.to(dtype))
+
+
+def quantize_q16(x: torch.Tensor) -> QTensor:
+    """Fixed global Q16.16 (the paper's format) as a QTensor: the raw
+    int32 words of ``to_fixed`` with exponent -16 (reference
+    ``core/quantization.py:93``)."""
+    from repro_torch.core.qformat import Q16_16, to_fixed
+
+    q = to_fixed(x, Q16_16)
+    return QTensor(q=q, exp=torch.tensor(-16, dtype=torch.int32, device=q.device), axis=None)
+
+
+def compress_with_feedback(grad: torch.Tensor, residual: torch.Tensor,
+                           bits: int = 8) -> Tuple[QTensor, torch.Tensor]:
+    """Error-feedback Q-format gradient compression (reference
+    ``core/quantization.py:102``): quantize ``grad + residual`` to
+    ``bits`` with one power-of-two scale for the tensor and return the
+    new residual, the quantization error, so the error is recirculated
+    rather than lost (EF-SGD)."""
+    g = torch.as_tensor(grad).to(torch.float32) + residual
+    qt = quantize_pow2(g, bits=bits, axis=None)
+    return qt, g - dequantize_pow2(qt)
 
 
 class QuantizedWeightCache:

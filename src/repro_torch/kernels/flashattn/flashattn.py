@@ -32,6 +32,14 @@ SGEMM, each lane a 4- or 8-row strip of a warp's 8 or 16 query rows,
 with Q and K d-major and V row-major in shared memory so that one
 128-bit load gives four operands, and K and V loads by ``cp.async``
 overlapping the products.
+
+Training differentiates it through :class:`FlashAttentionFn`: the
+forward is K4 (its plain version on a CPU tensor), the backward
+:func:`flash_attention_backward`, the gradient of ``chunked_attention``
+written out in PyTorch, chunk by chunk over the keys.  The reference has
+no backward kernel (XLA differentiates its scan), so this backward is
+not a plain version of a kernel.  :func:`flash_attention` enters the
+Function only when autograd records; a serving pass launches K4 bare.
 """
 
 from __future__ import annotations
@@ -44,8 +52,8 @@ import torch
 
 from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
 
-__all__ = ["KEY_TILE", "NEG_INF", "bf16_close", "flash_attention", "flash_attention_plain",
-           "p_rounding_case"]
+__all__ = ["KEY_TILE", "NEG_INF", "FlashAttentionFn", "bf16_close", "flash_attention",
+           "flash_attention_backward", "flash_attention_plain", "p_rounding_case"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +69,15 @@ MAX_HEAD_DIM = 256
 KEY_TILE = {128: 64, 256: 32}
 
 
+def _chunk(Skv: int, chunk: int) -> int:
+    """``chunked_attention``'s key-chunk size for ``Skv`` keys."""
+    if Skv >= 32768:
+        chunk = min(chunk, 128)
+    elif Skv >= 16384:
+        chunk = min(chunk, 512)
+    return min(chunk, Skv)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                           softcap: Optional[float] = None, chunk: int = 1024):
     """The plain PyTorch version: ``chunked_attention`` with keys from
@@ -71,11 +88,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int]
     Dv = v.shape[-1]
     G = H // KV
     scale = 1.0 / math.sqrt(Dq)
-    if Skv >= 32768:
-        chunk = min(chunk, 128)
-    elif Skv >= 16384:
-        chunk = min(chunk, 512)
-    chunk = min(chunk, Skv)
+    chunk = _chunk(Skv, chunk)
     n_chunks = -(-Skv // chunk)
     pad = n_chunks * chunk - Skv
     if pad:
@@ -111,10 +124,112 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dv).to(q.dtype)
 
 
+def _scores(qr, k_blk, c0: int, S: int, causal: bool, window, softcap):
+    """One key chunk's f32 scores of the pre-scaled queries ``qr``
+    (B,S,KV,G,D) f32 against ``k_blk`` (B,C,KV,D): (capped, masked
+    scores (B,KV,G,S,C), tanh(t / cap) or None, the mask)."""
+    t = torch.einsum("bskgd,bckd->bkgsc", qr, k_blk.to(torch.float32))
+    th = None
+    if softcap is not None:
+        th = torch.tanh(t / softcap)
+        t = softcap * th
+    qp = torch.arange(S, device=qr.device)[:, None]
+    kp = c0 + torch.arange(k_blk.shape[1], device=qr.device)[None, :]
+    valid = torch.ones_like(kp - qp, dtype=torch.bool)
+    if causal:
+        valid = valid & (kp <= qp)
+    if window is not None:
+        valid = valid & (kp > qp - window)
+    return torch.where(valid, t, torch.full_like(t, NEG_INF)), th, valid
+
+
+def flash_attention_backward(q, k, v, dout, *, causal: bool = True,
+                             window: Optional[int] = None, softcap: Optional[float] = None,
+                             chunk: int = 1024):
+    """(dq, dk, dv) of ``chunked_attention`` (keys from position 0,
+    queries at ``arange(S)``) for the output cotangent ``dout``
+    (B,S,H,Dv), in f32 and cast to each operand's dtype.  Two passes over
+    ``chunked_attention``'s key chunks: the first recomputes the row max,
+    the softmax denominator and the f32 output (p rounded to v's dtype
+    before P.V, as the forward), the second each chunk's normalised P,
+    then dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO * O)) times the
+    softcap's derivative ``1 - tanh(t / cap)^2``, dQ += dS K and
+    dK = dS^T Q; dq carries the ``D**-0.5`` pre-scale (the rounding of
+    the scaled q to its dtype passes the gradient straight through, as
+    XLA's derivative of the cast does)."""
+    B, S, H, Dq = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KV
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(Dq)
+    chunk = _chunk(Skv, chunk)
+    qr = (q.to(f32) * scale).to(q.dtype).reshape(B, S, KV, G, Dq).to(f32)
+    do = dout.to(f32).reshape(B, S, KV, G, Dv).permute(0, 2, 3, 1, 4)     # (B,KV,G,S,Dv)
+    blocks = [(c0, min(c0 + chunk, Skv)) for c0 in range(0, Skv, chunk)]
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=f32, device=q.device)
+    acc = torch.zeros((B, KV, G, S, Dv), dtype=f32, device=q.device)
+    for c0, c1 in blocks:
+        s, _, _ = _scores(qr, k[:, c0:c1], c0, S, causal, window, softcap)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgsc,bckd->bkgsd", p.to(v.dtype).to(f32), v[:, c0:c1].to(f32))
+        m = m_new
+    inv_l = 1.0 / torch.clamp_min(l, 1e-30)
+    delta = (do * (acc * inv_l[..., None])).sum(dim=-1)                  # (B,KV,G,S)
+    dqr = torch.zeros((B, S, KV, G, Dq), dtype=f32, device=q.device)
+    dk = torch.zeros((B, Skv, KV, Dq), dtype=f32, device=q.device)
+    dv = torch.zeros((B, Skv, KV, Dv), dtype=f32, device=q.device)
+    for c0, c1 in blocks:
+        k_blk, v_blk = k[:, c0:c1].to(f32), v[:, c0:c1].to(f32)
+        s, th, valid = _scores(qr, k_blk, c0, S, causal, window, softcap)
+        p = torch.where(valid, torch.exp(s - m[..., None]) * inv_l[..., None],
+                        torch.zeros_like(s))
+        dv[:, c0:c1] = torch.einsum("bkgsc,bkgsd->bckd", p, do)
+        ds = p * (torch.einsum("bkgsd,bckd->bkgsc", do, v_blk) - delta[..., None])
+        if th is not None:
+            ds = ds * (1.0 - th * th)
+        dqr += torch.einsum("bkgsc,bckd->bskgd", ds, k_blk)
+        dk[:, c0:c1] = torch.einsum("bkgsc,bskgd->bckd", ds, qr)
+    dq = (dqr * scale).reshape(B, S, H, Dq).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K4 forward, :func:`flash_attention_backward` backward (q, k and v
+    saved; the softmax statistics are recomputed there)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, softcap)
+        return _flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, window, softcap = ctx.opts
+        dq, dk, dv = flash_attention_backward(q, k, v, dout, causal=causal, window=window,
+                                              softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None, softcap: Optional[float] = None) -> torch.Tensor:
     """q (B,S,H,D), k (B,Skv,KV,D), v (B,Skv,KV,Dv) -> (B,S,H,Dv) through
-    K4; ``softcap`` caps the scores as ``chunked_attention(cap=...)``."""
+    K4; ``softcap`` caps the scores as ``chunked_attention(cap=...)``.
+    Differentiable (:class:`FlashAttentionFn`) when autograd records."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
+    return _flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                     window: Optional[int], softcap: Optional[float]) -> torch.Tensor:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: 4-D (B, S, heads, dim) operands required")
     B, S, H, D = q.shape

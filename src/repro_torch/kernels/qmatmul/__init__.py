@@ -1,5 +1,6 @@
 """K1: Q-format int8 matmul (reference: ``src/repro/kernels/qmatmul``),
-and its grouped entry for the MoE experts."""
+its grouped entry for the MoE experts, and the float ops over it
+(``ops``: ``qmatmul_float`` and the straight-through ``qdot_ste``)."""
 
 from repro_torch.kernels.qmatmul.qmatmul import (
     EPILOGUES,
@@ -8,5 +9,7 @@ from repro_torch.kernels.qmatmul.qmatmul import (
     qmatmul_grouped,
     qmatmul_plain,
 )
+from repro_torch.kernels.qmatmul.ops import DotFastSTE, qdot_ste, qmatmul_float
 
-__all__ = ["EPILOGUES", "MAX_K", "qmatmul", "qmatmul_plain", "qmatmul_grouped"]
+__all__ = ["EPILOGUES", "MAX_K", "qmatmul", "qmatmul_plain", "qmatmul_grouped", "DotFastSTE",
+           "qdot_ste", "qmatmul_float"]

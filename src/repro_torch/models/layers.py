@@ -18,9 +18,16 @@ runs on the port's kernels:
 Float casts sit where the reference has them: FAST ``pdot`` returns
 bf16, the fused hidden stage is cast to bf16 before the down
 projection.  The EXACT rung is float32 ``torch.matmul`` with TF32 off
-(``compat``).  The straight-through backward of the FAST dots and
-activations (training) waits for a later slice: the forwards here are
-what serving runs.
+(``compat``).
+
+Training differentiates the FAST rung as the reference's ``custom_vjp``
+rules do (``layers.py:132-297``): the K1 dot's backward is the
+straight-through estimator in float (``gx = g w^T`` in f32, cast to x's
+dtype; ``gw = x^T g``), K5's tanh and sigmoid take their analytic
+derivatives ``g (1 - y^2)`` and ``g y (1 - y)`` from the saved output.
+The autograd Functions (``kernels.qmatmul.DotFastSTE``,
+:class:`CordicSTE`) are entered only when autograd records: a serving
+pass runs the bare kernels.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ from repro_torch.core.quantization import quantize_pow2
 from repro_torch.kernels.cordic import rope_sincos_q16
 from repro_torch.kernels.cordic.ops import unary_op
 from repro_torch.kernels.fused_mlp import fused_swiglu
-from repro_torch.kernels.qmatmul import qmatmul
+from repro_torch.kernels.qmatmul.ops import DotFastSTE, qmatmul_float
+from repro_torch.kernels.qmatmul.ops import wq_parts as _wq_parts
 
 __all__ = [
     "Spec",
@@ -44,6 +52,7 @@ __all__ = [
     "rms_norm",
     "pdot",
     "dot_fast_int8",
+    "CordicSTE",
     "FAST_MODES",
     "is_fast_mode",
     "snap_q8_8",
@@ -120,24 +129,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     return (out * (1.0 + weight.to(torch.float32))).to(x.dtype)
 
 
-def _wq_parts(wq):
-    if isinstance(wq, dict):
-        return wq["q"], wq["exp"]
-    return wq.q, wq.exp
+def _records(*ts: torch.Tensor) -> bool:
+    """True when autograd records an op on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def dot_fast_int8(x: torch.Tensor, w: torch.Tensor, wq=None) -> torch.Tensor:
     """W8A8 matmul through K1: x quantized per tensor, weights per output
     channel (pre-quantized ``wq`` when given), ONE deferred rescale.
-    Returns f32 of shape ``x.shape[:-1] + (N,)``."""
-    if wq is None:
-        q, e = _wq_parts(quantize_pow2(w, bits=8, axis=w.ndim - 1))
-    else:
-        q, e = _wq_parts(wq)
-    xq = quantize_pow2(x, bits=8, axis=None)
-    K, N = q.shape
-    out = qmatmul(xq.q.reshape(-1, K), q, xq.exp, e.reshape(-1), "float")
-    return out.reshape(*x.shape[:-1], N)
+    Returns f32 of shape ``x.shape[:-1] + (N,)``; differentiable by the
+    straight-through estimator (``kernels.qmatmul.DotFastSTE``)."""
+    if _records(x, w):
+        return DotFastSTE.apply(x, w, wq)
+    return qmatmul_float(x, w, wq)
 
 
 def pdot(x: torch.Tensor, w: torch.Tensor, mode: str = "precise", wq=None) -> torch.Tensor:
@@ -156,25 +160,50 @@ def pdot(x: torch.Tensor, w: torch.Tensor, mode: str = "precise", wq=None) -> to
 # ---------------------------------------------------------------------------
 
 
+class CordicSTE(torch.autograd.Function):
+    """The reference's ``_tanh_fast`` / ``_sigmoid_fast``: the Q16.16
+    CORDIC ``op`` on K5 forward, the analytic derivative from the saved
+    output backward: ``g (1 - y^2)`` for tanh, ``g y (1 - y)`` for
+    sigmoid."""
+
+    @staticmethod
+    def forward(ctx, x, op):
+        y = unary_op(x, op)
+        ctx.save_for_backward(y)
+        ctx.op = op
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return (g * (1.0 - y * y) if ctx.op == "tanh" else g * y * (1.0 - y)), None
+
+
+def _cordic(x: torch.Tensor, op: str) -> torch.Tensor:
+    return CordicSTE.apply(x, op) if _records(x) else unary_op(x, op)
+
+
 def ptanh(x: torch.Tensor, mode: str = "precise") -> torch.Tensor:
-    """𝒟[tanh]: FAST -> Q16.16 CORDIC through K5; otherwise IEEE-754.
-    Inputs are expected in f32."""
+    """𝒟[tanh]: FAST -> Q16.16 CORDIC through K5 (analytic STE
+    backward); otherwise IEEE-754.  Inputs are expected in f32."""
     if is_fast_mode(mode):
-        return unary_op(x, "tanh")
+        return _cordic(x, "tanh")
     return torch.tanh(x)
 
 
 def psigmoid(x: torch.Tensor, mode: str = "precise") -> torch.Tensor:
-    """𝒟[sigmoid]: FAST -> Q16.16 CORDIC through K5."""
+    """𝒟[sigmoid]: FAST -> Q16.16 CORDIC through K5 (analytic STE
+    backward)."""
     if is_fast_mode(mode):
-        return unary_op(x, "sigmoid")
+        return _cordic(x, "sigmoid")
     return torch.sigmoid(x)
 
 
 def psilu(x: torch.Tensor, mode: str = "precise") -> torch.Tensor:
-    """𝒟[silu]: x * sigmoid(x) with the sigmoid precision-dispatched."""
+    """𝒟[silu]: x * sigmoid(x) with the sigmoid precision-dispatched; the
+    product rule composes with the sigmoid's STE under autograd."""
     if is_fast_mode(mode):
-        return x * unary_op(x, "sigmoid")
+        return x * _cordic(x, "sigmoid")
     return torch.nn.functional.silu(x)
 
 

@@ -3,10 +3,16 @@
 Reference: ``src/repro/models/model.py`` — ``param_specs``,
 ``init_params``, ``init_caches``, ``cache_layout``, ``write_cache_slot``,
 ``reset_cache_slot``, ``truncate_cache_slot``, ``prefill_step``,
-``decode_step`` (with ``lane_mask``), and the segment steps
+``decode_step`` (with ``lane_mask``), the segment steps
 ``segment_step`` / ``commit_segment`` that the paged server's chunked
-prefill and the speculative verify run on.  Training (``train_loss``)
-waits for ROADMAP.md queue 1 item 12.
+prefill and the speculative verify run on, and training's
+``train_loss`` (``_backbone_train``, ``_lm_head``, ``_chunked_ce``).
+
+Modality stubs (phi-3-vision, musicgen): ``extra_embeds`` (B, P, d) are
+precomputed patch or frame embeddings added onto the first
+``cfg.stub_prefix_len`` token positions (``prefill_step`` and
+``train_loss``'s batch key); without them a stub runs as plain text.
+The servers stay text-only, as the reference's do.
 
 Parameters and caches keep the reference's trees: nested dicts whose
 ``periods`` leaves are stacked ``(n_periods, ...)``; the forward walks
@@ -29,6 +35,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.compat import resolve_device
 from repro_torch.models import attention as attn
@@ -41,6 +48,7 @@ __all__ = [
     "init_params",
     "init_caches",
     "cache_layout",
+    "train_loss",
     "prefill_step",
     "decode_step",
     "segment_step",
@@ -172,17 +180,25 @@ def layer_params(params: dict, i: int) -> dict:
     return tree_map(lambda x: x[i], params["periods"])
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.stub_prefix_len:
-        raise NotImplementedError("modality stubs: ROADMAP.md queue 1 item 10")
-    # the reference casts the table to bf16 BEFORE the gather
-    return params["embed"][tokens].to(torch.bfloat16)
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+           extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    # the reference casts the table to bf16 BEFORE the gather (the same
+    # values: the rows are rounded either way)
+    x = params["embed"][tokens].to(torch.bfloat16)
+    if extra_embeds is not None and cfg.stub_prefix_len:
+        P = cfg.stub_prefix_len
+        x = torch.cat([x[:, :P] + extra_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
+
+
+def _lm_head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor, mode: str) -> torch.Tensor:
     """Last-position logits, soft-capped (gemma2) at the rung's
     precision: the FAST cap is the CORDIC tanh on K5."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = _lm_head(params, cfg)
     if mode == "exact":
         logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
     else:
@@ -206,7 +222,7 @@ def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
     for i in range(cfg.n_periods):
         cache_i = None if caches is None else tree_map(lambda c: c[i], caches)
         aux_i = {} if seg_aux is not None else None
-        # the MoE aux losses are training's (ROADMAP.md queue 1 item 12)
+        # the MoE aux losses are training's (train_loss); serving reads none
         x, _, _ = period_forward(layer_params(params, i), x, cfg, positions=positions,
                                  mode=mode, caches=cache_i, prefill=prefill,
                                  lane_mask=lane_mask, rope=rope, seg_aux=aux_i, aux=False)
@@ -219,17 +235,119 @@ def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ModelConfig,
-                 mode: str = "precise"):
+                 mode: str = "precise", extra_embeds: Optional[torch.Tensor] = None):
     """tokens (B,S) from position 0 -> (last-position logits (B,V) f32,
-    caches) with rows [0, S) of ``caches`` written in place."""
+    caches) with rows [0, S) of ``caches`` written in place.
+    ``extra_embeds`` (B, P, d): a modality stub's prefix embeddings."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, extra_embeds)
     if mode == "exact":
         x = x.to(torch.float32)
     x = _layers(params, x, caches, cfg, positions, mode, prefill=True)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     return _head(params, cfg, x[:, 0], mode), caches
+
+
+# ---------------------------------------------------------------------------
+# training loss (chunked CE)
+# ---------------------------------------------------------------------------
+
+
+def _period_train(params: dict, i: int, x: torch.Tensor, cfg: ModelConfig, positions, mode,
+                  rope):
+    x, _, aux = period_forward(layer_params(params, i), x, cfg, positions=positions, mode=mode,
+                               rope=rope)
+    return x, aux
+
+
+def _backbone_train(params: dict, x: torch.Tensor, cfg: ModelConfig, positions, mode: str,
+                    remat: bool):
+    """The periods without caches -> (x, summed MoE aux losses (2,)).
+    ``remat``: each period is checkpointed (``jax.checkpoint`` per scanned
+    period in the reference): the backward recomputes its forward,
+    kernels included, and keeps only the period's input.  The RoPE
+    tables are built once, outside the checkpoints (one K3 launch a FAST
+    step), and enter each period as inputs."""
+    rope = (rope_tables(positions, cfg.rope_dim, cfg.rope_base, mode)
+            if cfg.has_attention else None)
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_periods):
+        if remat:
+            # early stop off: the recompute runs the whole period, so a
+            # step's launches are the same whatever autograd saves
+            with set_checkpoint_early_stop(False):
+                x, a = checkpoint(_period_train, params, i, x, cfg, positions, mode, rope,
+                                  use_reentrant=False)
+        else:
+            x, a = _period_train(params, i, x, cfg, positions, mode, rope)
+        aux = aux + a
+    return x, aux
+
+
+def _ce_chunk(h, head, labels, mask, cap, mode):
+    """One sequence chunk: logits = f32 product of the bf16-rounded
+    hidden rows and head (the reference's ``jnp.dot(bf16, bf16,
+    preferred_element_type=f32)``), the final softcap at the rung, then
+    (sum CE, sum z, count)."""
+    logits = torch.matmul(h.to(torch.bfloat16).to(torch.float32), head)
+    logits = softcap(logits, cap, mode)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    ce = (lse - gold) * mask
+    return ce.sum(), ((lse * mask) ** 2).sum(), mask.sum()
+
+
+def _chunked_ce(hidden, head, labels, mask, cfg: ModelConfig, chunk: int = 256,
+                mode: str = "precise"):
+    """hidden (B,S,d), head (d,V), labels / mask (B,S) -> (sum_loss,
+    sum_zloss, count), chunk by chunk over the sequence.  Each chunk is
+    checkpointed, so its (B, chunk, V) logits are transient: the backward
+    recomputes them (the softcap's K5 launch included on the FAST rung).
+    The head is rounded to bf16 once, outside the chunks."""
+    S = hidden.shape[1]
+    chunk = min(chunk, S)
+    head = head.to(torch.bfloat16).to(torch.float32)
+    loss_s = z_s = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        with set_checkpoint_early_stop(False):
+            l, z, n = checkpoint(_ce_chunk, hidden[:, sl], head, labels[:, sl], mask[:, sl],
+                                 cfg.final_softcap, mode, use_reentrant=False)
+        loss_s, z_s, cnt = loss_s + l, z_s + z, cnt + n
+    return loss_s, z_s, cnt
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig, mode: str = "precise",
+               remat: bool = True, z_coef: float = 1e-4):
+    """batch: ``tokens`` (B,S), ``labels`` (B,S), optional ``loss_mask``
+    and ``extra_embeds`` -> (loss, metrics) with metrics ``ce``,
+    ``z_loss``, ``tokens`` and, for MoE models, ``moe_lb`` / ``moe_z``
+    (0-dim f32 tensors).  Differentiable: the FAST rung's kernels carry
+    straight-through (K1, K5) or written-out (K4) gradients; no cache is
+    touched."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+
+    x = _embed(params, tokens, cfg, batch.get("extra_embeds"))
+    x, aux = _backbone_train(params, x, cfg, positions, mode, remat)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+
+    loss_s, z_s, cnt = _chunked_ce(x, _lm_head(params, cfg), labels, mask, cfg, mode=mode)
+    denom = torch.clamp_min(cnt, 1.0)
+    ce = loss_s / denom
+    z_loss = z_coef * z_s / denom
+    loss = ce + z_loss
+    metrics = {"ce": ce, "z_loss": z_loss, "tokens": cnt}
+    if cfg.moe is not None:
+        lb, rz = aux[0] / cfg.n_periods, aux[1] / cfg.n_periods
+        loss = loss + cfg.moe.aux_loss_coef * lb + cfg.moe.router_z_coef * rz
+        metrics.update({"moe_lb": lb, "moe_z": rz})
+    return loss, metrics
 
 
 def decode_step(params: dict, token: torch.Tensor, position: torch.Tensor, caches: dict,

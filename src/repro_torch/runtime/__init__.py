@@ -1,7 +1,7 @@
-"""Serving runtime (reference: ``src/repro/runtime``): the continuous-
-batching scheduler and server on the contiguous or the paged cache
-pool, ladder-speculative decoding, the serving config, the
-cache-lifecycle surface and telemetry."""
+"""Runtime (reference: ``src/repro/runtime``): the continuous-batching
+scheduler and server on the contiguous or the paged cache pool,
+ladder-speculative decoding, the serving config, the cache-lifecycle
+surface, telemetry, and the fault-tolerant ``Trainer``."""
 
 from repro_torch.runtime.cachepool import (
     CacheOps,
@@ -23,6 +23,7 @@ from repro_torch.runtime.speculative import (
     vanilla_greedy_reference,
 )
 from repro_torch.runtime.telemetry import MetricsRegistry, Telemetry, TelemetryConfig
+from repro_torch.runtime.train_loop import InjectedFailure, Trainer, TrainerConfig
 
 __all__ = [
     "CacheOps",
@@ -48,4 +49,7 @@ __all__ = [
     "MetricsRegistry",
     "Telemetry",
     "TelemetryConfig",
+    "InjectedFailure",
+    "Trainer",
+    "TrainerConfig",
 ]

@@ -5,7 +5,7 @@ bf16 cast of the FAST rung rounds where the source says it does.
 
 Usage: XLA_FLAGS=--xla_allow_excess_precision=false \
            python tests/_torch_jax_child.py OUT.npz \
-               [ARCH [model|segment|spec|paged|moe|serve|qkv|ssm|mla|hybrid]]
+               [ARCH [model|segment|spec|paged|moe|serve|qkv|ssm|mla|hybrid|train]]
 
 ARCH is ``deepseek_7b`` (default; tests/test_torch_model.py),
 ``gemma2_2b`` (tests/test_torch_gemma2.py) or, from the MoE slice,
@@ -72,6 +72,18 @@ paged ``ContinuousBatchingServer`` gives PAGED_WORKLOAD in one mixed
 batch (``paged/tokens{i}``).  Both use the unquantized parameters
 (``param/...`` without the ``_q`` payloads), which the servers quantize
 themselves.
+
+With ``train`` (tests/test_torch_train.py, tests/test_torch_stubs.py)
+ARCH is a comma list of archs; for each it writes the parameters of
+``init_params(PRNGKey(0))`` (``{arch}/param/...``), the batch of
+``tests/test_arch_smoke.py::make_batch`` (``{arch}/batch/...``) and, at
+every mode of TRAIN_MODES, ``jax.value_and_grad`` of ``train_loss``: the
+loss, the metrics and every gradient leaf
+(``{arch}/train/{mode}/{loss,metrics/...,grad/...}``).  A modality stub
+also gets the serving records of STUB_MODES on its attached weights:
+``prefill_step`` of the batch's tokens with and without the batch's
+``extra_embeds`` and one decode after the first
+(``{arch}/stub/{mode}/{logits,logits_text,c1/...,logits_decode,c2/...}``).
 
 The ``spec`` and ``paged`` runs are shared by their two test modules:
 :func:`start_shared` starts, once per test session (across xdist
@@ -146,8 +158,19 @@ MLA_MODES = ("exact", "precise")
 #: (B, S, heads, head_dim, d_state) of the ``ssd`` records
 SSD_SHAPE = (2, 32, 3, 5, 7)
 SSD_CHUNK = 8
+#: the ``train`` records' modes per arch (the precise rung for all)
+TRAIN_MODES = {"deepseek_7b": ("precise", "fast"), "granite_moe_3b_a800m": ("precise", "fast"),
+               "mamba2_1_3b": ("precise", "fast")}
+STUB_MODES = ("exact", "fast")
+#: the ``train`` runs: four children, about equal in compile time
+TRAIN_GROUPS = ("deepseek_7b,gemma2_2b,phi3_vision_4_2b",
+                "granite_moe_3b_a800m,mixtral_8x22b,musicgen_large",
+                "mamba2_1_3b,minicpm3_4b,command_r_35b",
+                "jamba_v01_52b")
 #: (arch, mode) -> the test module (or modules) that read the run
 SHARED_RUNS = {
+    **{(group, "train"): ("test_torch_train.py", "test_torch_stubs.py")
+       for group in TRAIN_GROUPS},
     ("mamba2_1_3b", "ssm"): ("test_torch_ssm.py", "test_torch_hybrid_serving.py"),
     ("minicpm3_4b", "mla"): ("test_torch_mla.py", "test_torch_hybrid_serving.py"),
     ("jamba_v01_52b", "hybrid"): "test_torch_hybrid_serving.py",
@@ -409,9 +432,62 @@ def qkv(flat, cfg):
     _save_tree(flat, "int8/commit", merged)
 
 
-def main(out, arch="deepseek_7b", what=""):
+def make_batch(cfg, B=2, S=32, rng_seed=0):
+    """``tests/test_arch_smoke.py::make_batch``."""
+    rng = np.random.default_rng(rng_seed)
+    tokens = jnp.asarray(rng.integers(0, cfg.vocab, (B, S)))
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.modality_stub:
+        batch["extra_embeds"] = jnp.asarray(
+            rng.normal(0, 0.02, (B, cfg.stub_prefix_len, cfg.d_model)), jnp.float32)
+    return batch
+
+
+def train(flat, arch):
+    """The ``train`` records of the module docstring for one arch."""
+    from repro.models import train_loss
+
     cfg = smoke(arch)
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        flat[f"{arch}/param/" + "/".join(k.key for k in path)] = np.asarray(leaf)
+    batch = make_batch(cfg)
+    _save(flat, f"{arch}/batch", batch)
+    for mode in TRAIN_MODES.get(arch, ("precise",)):
+        (loss, metrics), grads = jax.jit(jax.value_and_grad(
+            lambda p, b, m=mode: train_loss(p, b, cfg, mode=m), has_aux=True))(params, batch)
+        flat[f"{arch}/train/{mode}/loss"] = np.asarray(loss)
+        _save(flat, f"{arch}/train/{mode}/metrics", metrics)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(grads)[0]:
+            flat[f"{arch}/train/{mode}/grad/" + "/".join(k.key for k in path)] = np.asarray(leaf)
+    if not cfg.modality_stub:
+        return
+    pa = attach_quantized_weights(params, QuantizedWeightCache())
+    B, S = batch["tokens"].shape
+    for mode in STUB_MODES:
+        prefill = jax.jit(lambda p, t, c, e, m=mode: prefill_step(p, t, c, cfg, mode=m,
+                                                                  extra_embeds=e))
+        decode = jax.jit(lambda p, t, q, c, m=mode: decode_step(p, t, q, c, cfg, mode=m))
+        caches = init_caches(cfg, B, cfg.max_seq, dtype=jnp.float32)
+        logits, c1 = prefill(pa, batch["tokens"], caches, batch["extra_embeds"])
+        flat[f"{arch}/stub/{mode}/logits"] = np.asarray(logits)
+        _save_tree(flat, f"{arch}/stub/{mode}/c1", c1)
+        text, _ = prefill(pa, batch["tokens"], caches, None)
+        flat[f"{arch}/stub/{mode}/logits_text"] = np.asarray(text)
+        tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+        ld, c2 = decode(pa, tok, jnp.full((B,), S, jnp.int32), c1)
+        flat[f"{arch}/stub/{mode}/logits_decode"] = np.asarray(ld)
+        _save_tree(flat, f"{arch}/stub/{mode}/c2", c2)
+
+
+def main(out, arch="deepseek_7b", what=""):
     flat = {}
+    if what == "train":
+        for a in arch.split(","):
+            train(flat, a)
+        _write(out, flat)
+        return
+    cfg = smoke(arch)
     if what == "qkv":
         qkv(flat, cfg)
         _write(out, flat)

@@ -767,3 +767,76 @@ def test_cuda_ssm_mla_speculative_serving_and_draft_restore(cuda, arch, cache):
         for k, node in pool.items():
             for n, v in node.items():
                 assert torch.equal(v, before[k][n]), (k, n)
+
+
+def _leaves(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k])
+        else:
+            yield tree[k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["precise", "fast"])
+@pytest.mark.parametrize("arch", ["gemma2_2b", "deepseek_7b"])
+def test_cuda_train_loss_and_grads_match_plain(cuda, arch, mode):
+    """``train_loss`` and its gradients on the card (K1, K3, K4, K5 with
+    their autograd Functions; K2 never) against the plain versions on the
+    CPU, same parameters: loss rel 1e-3, every gradient leaf within 5e-2
+    of its norm (bf16 products summed in other orders).  Dense models:
+    a MoE router turns such ulps into other experts (granite's FAST loss
+    moved by 1.4e-3 between the card and the CPU); MoE training is held
+    against JAX on the CPU (tests/test_torch_train.py)."""
+    from repro_torch.configs import smoke
+    from repro_torch.kernels.fused_mlp import fused_swiglu as k2
+    from repro_torch.models.model import init_params, train_loss
+
+    cfg = smoke(arch)
+    tok = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32)
+    base = init_params(cfg, seed=3, device="cpu")
+
+    def copy(tree, dev):
+        return {k: copy(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+                for k, v in tree.items()}
+
+    out = {}
+    for dev in ("cpu", cuda):
+        params = copy(base, dev)
+        leaves = list(_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = {"tokens": tok.to(dev), "labels": tok.to(dev)}
+        k1, k4, k2_before = qmatmul.launches, flash_attention.launches, k2.launches
+        loss, _ = train_loss(params, batch, cfg, mode=mode)
+        grads = torch.autograd.grad(loss, leaves)
+        out[str(dev)] = (float(loss.detach()), [g.detach().cpu().double() for g in grads])
+        if dev != "cpu":
+            assert flash_attention.launches > k4 and k2.launches == k2_before
+            assert (qmatmul.launches > k1) == (mode == "fast")
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-3 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert (a - b).norm() <= 5e-2 * b.norm() + 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_resume_bitwise(cuda, tmp_path):
+    """The reference's failure-injection test on the card (gemma2's smoke
+    config): resumed losses within rel 1e-5 of an uninterrupted run."""
+    from repro_torch.configs import smoke
+    from repro_torch.runtime import InjectedFailure, Trainer, TrainerConfig
+
+    def trainer(d, **kw):
+        return Trainer(smoke("gemma2_2b"), TrainerConfig(total_steps=16, ckpt_every=4,
+                                                         ckpt_dir=str(d), **kw), device=cuda)
+
+    with pytest.raises(InjectedFailure):
+        trainer(tmp_path / "a", crash_at_step=10).run()
+    t2 = trainer(tmp_path / "a")
+    assert t2.start_step == 8
+    resumed = {h["step"]: h["loss"] for h in t2.run()["history"]}
+    ref = {h["step"]: h["loss"] for h in trainer(tmp_path / "b").run()["history"]}
+    for s in range(10, 16):
+        assert resumed[s] == pytest.approx(ref[s], rel=1e-5), s

@@ -177,10 +177,9 @@ def test_core_exports_the_references_names_it_has():
     missing = {n for n in jcore.__all__ if n not in tcore.__all__}
     # not ported yet, each named in repro_torch/core/__init__.py's docstring
     assert missing == {
-        "PrecisionContext", "atan2_q16", "compress_with_feedback", "cordic_atan2",
-        "cordic_atan2_24", "cordic_div", "cordic_exp", "cordic_log", "cordic_sigmoid",
-        "cordic_sqrt", "cordic_tanh", "div_q16", "exp_q16", "log_q16", "quantize_q16",
-        "rope_tables_cordic", "sigmoid_q16", "sqrt_q16", "tanh_q16"}
+        "PrecisionContext", "atan2_q16", "cordic_atan2", "cordic_atan2_24", "cordic_div",
+        "cordic_exp", "cordic_log", "cordic_sigmoid", "cordic_sqrt", "cordic_tanh", "div_q16",
+        "exp_q16", "log_q16", "rope_tables_cordic", "sigmoid_q16", "sqrt_q16", "tanh_q16"}
     assert tcore.OP_SET == jcore.OP_SET
 
 

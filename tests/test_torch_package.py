@@ -106,11 +106,10 @@ def test_kernel_sources_present_and_build_dir_ignored(name):
 
 def test_only_ported_families_resolve():
     assert get_config("deepseek_7b").d_model == 4096
+    # every family is ported: each resolves, and none waits on the ROADMAP
+    assert set(PORTED) == set(ARCH_IDS)
     for arch in ARCH_IDS:
-        if arch in PORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            get_config(arch)
+        assert get_config(arch).n_layers > 0
 
 
 def _run_chip_smoke(cwd: Path):
