@@ -187,7 +187,26 @@ Phases, each printing JSON lines:
    head_dim 64, prefix 256): a 1000-token prefill with seeded
    ``extra_embeds`` and 16 greedy decodes at both rungs, exact launches a
    pass, finite logits, the prefix moving the logits, and without it the
-   text model's logits bit for bit.
+   text model's logits bit for bit;
+16. (slice 12) gemma2-2b's compressed data-parallel step at full size
+   (B = 1, S = 4096 of ``SyntheticLM``) through ``make_dp_train_step``
+   on a one-rank NCCL group (a local store) and a ("data",) mesh of 1:
+   DP_STEPS, two FAST steps and one ``precise`` with ``compress_bits=8``,
+   one ``precise`` with ``None`` (the f32 all-reduce); every loss and
+   grad norm finite, each step launching exactly
+   :func:`train_step_launches` at its rung, no plain version, the wire
+   payloads int8 and 2 bytes an element (``2 x`` the padded numel), on
+   step 0 the compressed mean equal to the local ``q 2**e`` and the new
+   residual to ``g + r - q 2**e`` bit for bit on DP_RECORD, the group
+   destroyed at the end; step seconds, the compression's milliseconds
+   and peak GB reported;
+17. (slice 12, after 16's group is gone) the dry-run
+   (``launch.dryrun.run_cell``) of DRYRUN_CELLS on the (16, 16)
+   ``single`` mesh at ``precise`` on a fake process group of 256 ranks:
+   status ``ok``, FLOPs and collective bytes above zero, the per-device
+   argument bytes equal to the rules' local shards; memory, FLOPs,
+   collectives and the roofline terms reported as estimates (traced on
+   meta tensors with the H100 constants, not measured).
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line again, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -3580,6 +3599,232 @@ def stub_phase(name: str, seed: int, strict: bool):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 16-17 (slice 12): the compressed data-parallel step, the dry-run
+# ---------------------------------------------------------------------------
+
+#: the data-parallel steps of phase 16: (model mode, compress_bits)
+DP_STEPS = (("fast", 8), ("fast", 8), ("precise", 8), ("precise", None))
+#: the leaves whose compressed mean is held to q 2**e bit for bit
+DP_RECORD = ("embed", "periods/pos0/mixer/wq")
+#: the production dry-run cells of phase 17 (tests/test_dryrun.py's pair)
+DRYRUN_CELLS = (("gemma2_2b", "train_4k"), ("mamba2_1_3b", "decode_32k"))
+
+
+def _has_dp() -> bool:
+    """False only for a --root checkout older than the sharded slice."""
+    import importlib.util
+
+    return importlib.util.find_spec("repro_torch.optim.grad_compress") is not None
+
+
+def _numel_tree(tree) -> int:
+    from repro_torch.launch.steps import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def dp_train_phase(seed: int, strict: bool):
+    """gemma2-2b at full size, B = 1, S = TRAIN_SEQ, through
+    ``make_dp_train_step`` on a one-rank NCCL group and a ("data",) mesh
+    of 1: DP_STEPS, each step's loss and grad norm finite, its launches
+    exactly ``train_step_launches`` at its rung, no plain version, the
+    wire payloads int8 and 2 bytes an element, the group destroyed at the
+    end; on step 0 the world-1 identity on DP_RECORD."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state, make_dp_train_step
+    from repro_torch.optim.grad_compress import tree_paths
+
+    cfg = get_config("gemma2_2b")
+    dev = torch.device(DEVICE)
+    sync = torch.cuda.synchronize
+    require(not dist.is_initialized(), "a process group stands before the DP phase")
+    # one rank, a local store; gloo only for a CPU rehearsal
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    paths, plain = {}, {}
+    undo = [_count_plain(plain), _count_plain_k4(plain)]
+    try:
+        mesh = init_device_mesh(DEVICE, (1,), mesh_dim_names=("data",))
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=seed, device=dev)
+        for _, t in tree_paths(params):
+            t.requires_grad_(True)
+        opt = init_opt_state(params)
+        res = _zeros_tree(params)
+        n_elem = _numel_tree(params)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1,
+                                      seed=seed))
+        ocfg = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=len(DP_STEPS))
+        sync()
+        setup_s = time.perf_counter() - t0
+        recs = []
+        for s, (mode, bits) in enumerate(DP_STEPS):
+            step = make_dp_train_step(cfg, ocfg, mesh, compress_bits=bits, mode=mode,
+                                      record=DP_RECORD if s == 0 else ())
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(s).items()}
+            _reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            sync()
+            t1 = time.perf_counter()
+            params, opt, res, m = step(params, opt, res, batch)
+            sync()
+            dt = time.perf_counter() - t1
+            counts = _launch_counts()
+            want = train_step_launches(cfg, TRAIN_SEQ, mode == "fast")
+            got = {k: counts[k] for k in want}
+            st = step.stats
+            rec = {"step": s, "mode": mode, "compress_bits": bits, "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]), "step_s": dt,
+                   "tokens_per_s": TRAIN_SEQ / dt, "compress_ms": st["compress_s"] * 1e3,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": got, "want_launches": want}
+            if bits is not None:
+                rec.update(wire_bytes=st["wire_bytes"], padded_numel=st["padded_numel"],
+                           f32_ring_bytes=8 * n_elem,
+                           payload_dtypes=sorted(st["payload_dtypes"]))
+                require(rec["payload_dtypes"] == ["torch.int8"],
+                        f"DP step {s}: wire payloads {rec['payload_dtypes']}, want int8")
+                require(st["padded_numel"] == n_elem and st["wire_bytes"] == 2 * n_elem,
+                        f"DP step {s}: wire bytes {st['wire_bytes']} for {n_elem} elements "
+                        "(want 2 a padded element)")
+            if s == 0:
+                ident = {}
+                for path, r in st.pop("records").items():
+                    deq = r["q"].to(torch.float32) * torch.exp2(r["e"].to(torch.float32))
+                    ident[path] = {"mean": bool(torch.equal(r["mean"], deq)),
+                                   "residual": bool(torch.equal(r["res"], r["g32"] - deq)),
+                                   "numel": r["q"].numel(), "exponent": int(r["e"])}
+                    del r, deq
+                rec["world1_identity"] = ident
+                require(set(ident) == set(DP_RECORD) and all(
+                    v["mean"] and v["residual"] for v in ident.values()),
+                        f"world-1 compressed mean is not q 2**e bit for bit: {ident}")
+            emit({"phase": "gemma2_2b_dp_train", **rec})
+            require(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+                    f"DP step {s}: loss {rec['loss']} grad norm {rec['grad_norm']}")
+            require(got == want, f"DP step {s} ({mode}) launched {got}, want {want} "
+                    f"({TRAIN_FORMULA})")
+            key = f"dp_train_{mode}" + ("" if bits else "_f32_allreduce")
+            paths[key] = {k: paths.get(key, {}).get(k, 0) + counts[k] for k in counts}
+            recs.append(rec)
+            del step, batch, m
+        require(not plain, f"the DP step reached plain versions on the card: {plain}")
+        emit({"phase": "gemma2_2b_dp_train", "config": f"{cfg.name}: {cfg.n_layers} layers, "
+              f"{n_elem} parameters", "batch": 1, "seq": TRAIN_SEQ, "setup_s": setup_s,
+              "world_size": dist.get_world_size(), "backend": dist.get_backend(),
+              "step_s": {f"{r['mode']}/{r['compress_bits']}": r["step_s"] for r in recs},
+              "compress_ms": {f"{r['mode']}/{r['compress_bits']}": r["compress_ms"]
+                              for r in recs},
+              "peak_mem_gb": max(r["peak_mem_gb"] for r in recs[1:]),
+              "peak_mem_gb_step0_with_records": recs[0]["peak_mem_gb"]})
+        del params, opt, res
+    finally:
+        for u in undo:
+            u()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    require(not dist.is_initialized(), "the DP phase left its process group standing")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _zeros_tree(tree):
+    import torch
+
+    return {k: _zeros_tree(v) if isinstance(v, dict) else torch.zeros(
+        v.shape, dtype=torch.float32, device=v.device) for k, v in tree.items()}
+
+
+def _rule_arg_bytes(arch: str, shape_id: str, sizes: dict) -> int:
+    """Per-device bytes of a cell's arguments from the rules alone: each
+    leaf's global shape over the mesh axes its resolved mapping names."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import batch_pspec, train_rules
+    from repro_torch.launch import steps
+    from repro_torch.models import init_caches, param_specs
+    from repro_torch.optim.adamw import opt_state_specs
+
+    cfg = get_config(arch)
+    cell = steps.SHAPES[shape_id]
+
+    def local(shape, spec):
+        n = 1
+        for dim, entry in zip(shape, spec):
+            names = () if entry is None else (entry,) if isinstance(entry, str) else entry
+            n *= dim // math.prod(sizes[a] for a in names)
+        return n
+
+    total = 0
+    specs = list(steps.tree_leaves(param_specs(cfg)))
+    if cell.kind == "train":
+        rs = train_rules(sizes)
+        specs += list(steps.tree_leaves(opt_state_specs(param_specs(cfg))))
+        for sp in specs:
+            total += local(sp.shape, rs.resolve(sp.axes, sp.shape)) * sp.dtype.itemsize
+        return total + 2 * 4 * local((cell.batch, cell.seq), batch_pspec(rs, cell.batch))
+    rs = steps._serve_ruleset(cfg, sizes)
+    for sp in specs:
+        total += local(sp.shape, rs.resolve(sp.axes, sp.shape)) * 2          # bf16
+    caches = init_caches(cfg, cell.batch, cell.seq, device="meta")
+    sh = steps._cache_shardings(caches, cfg, rs, cell.batch)
+    for c, s in zip(steps.tree_leaves(caches), steps.tree_leaves(sh)):
+        total += local(c.shape, s.spec) * c.element_size()
+    return (total + 4 * local((cell.batch, 1), batch_pspec(rs, cell.batch))
+            + 4 * local((cell.batch,), batch_pspec(rs, cell.batch, extra_dims=0)))
+
+
+def dryrun_phase(seed: int, strict: bool):
+    """The production dry-run (``launch.dryrun.run_cell``) of DRYRUN_CELLS
+    on the (16, 16) ``single`` mesh at ``precise``, on a fake process
+    group of 256 ranks (after phase 16's group is gone): status ``ok``,
+    FLOPs and collective bytes above zero, the per-device argument bytes
+    equal to the rules' local shards.  Traced on meta tensors with the
+    H100 constants: estimates, not measurements."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_shape
+
+    require(not dist.is_initialized(), "a process group stands before the dry-run")
+    sizes = mesh_shape("single")
+    for arch, shape_id in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape_id, "single", "precise", verbose=False)
+        wall = time.perf_counter() - t0
+        require(rec["status"] == "ok", f"dry-run {arch} x {shape_id}: {rec}")
+        hc, mem = rec["hlo_costs"], rec["memory"]
+        want_args = _rule_arg_bytes(arch, shape_id, sizes)
+        emit({"phase": "dryrun", "cell": f"{arch} x {shape_id} x single (16, 16) precise",
+              "estimate": "traced on meta tensors, NVIDIA H100 SXM data-sheet constants; "
+                          "not a measurement",
+              "build_s": rec["lower_s"], "trace_s": rec["compile_s"], "wall_s": wall,
+              "memory_per_device": mem, "rule_argument_bytes": want_args,
+              "flops_per_device": hc["flops"], "bytes_per_device": hc["bytes"],
+              "collective_bytes": hc["collective_bytes"],
+              "collective_counts": hc["collective_counts"],
+              "kernel_calls": hc["kernel_calls"],
+              "roofline": {k: rec["roofline"][k] for k in (
+                  "compute_s", "memory_s", "collective_s", "dominant", "model_flops",
+                  "useful_flop_ratio", "roofline_fraction")},
+              "dropped_rules": len(rec["dropped_rules"])})
+        require(hc["flops"] > 0 and hc["total_collective_bytes"] > 0,
+                f"dry-run {arch} x {shape_id}: flops {hc['flops']}, collective "
+                f"{hc['total_collective_bytes']}")
+        require(mem["argument_size_in_bytes"] == want_args,
+                f"dry-run {arch} x {shape_id}: argument bytes {mem['argument_size_in_bytes']} "
+                f"per device, the rules give {want_args}")
+    require(not dist.is_initialized(), "the dry-run left its process group standing")
+    return {}
+
+
 REPLACES = {
     "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
                 "src/repro/kernels/qmatmul/qmatmul.py:50"),
@@ -3710,6 +3955,10 @@ def main(argv=None) -> int:
                                                                          strict)),
                        ("musicgen_large", lambda s, strict: stub_phase("musicgen_large", s,
                                                                        strict))]
+        if _has_dp():
+            models += [("gemma2_2b", dp_train_phase), ("dryrun", dryrun_phase)]
+        else:
+            require(root != ROOT, "the sharded slice's modules are missing")
         for model, phase in models:
             gc.collect()
             torch.cuda.empty_cache()

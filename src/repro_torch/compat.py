@@ -10,6 +10,14 @@ Float policy: TF32 is switched off for matmuls and cuDNN once, at
 import, so the exact (``f32``) rung computes in full float32 on the card
 as the JAX package does under XLA.
 
+Sharded and traced calls: a kernel wrapper given a ``DTensor`` runs its
+kernel on the local shards (:func:`dtensor_local`, :func:`from_local`:
+the rules' placements, Partial sums settled first), and given a
+``meta`` tensor (the dry-run's trace) it launches nothing and runs no
+plain version: :func:`meta_kernel` hands the contract's operations and
+bytes to the active cost counters (``launch.cost_analysis``) and the
+wrapper returns empty outputs of the contract's shapes.
+
 Kernel build: every ``kernels/csrc/<name>.cu`` is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library with a plain C interface,
 loaded with :mod:`ctypes`.  The build runs at first use into ``build/``
@@ -44,6 +52,18 @@ __all__ = [
     "kernel_function",
     "current_stream",
     "check_launch",
+    "COST_SINKS",
+    "meta_kernel",
+    "is_dtensor",
+    "dtensor_local",
+    "settled_placements",
+    "from_local",
+    "replicated_like",
+    "gather_inner",
+    "product_out",
+    "grad_layout",
+    "gather_contraction",
+    "keep_layout",
 ]
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -179,3 +199,145 @@ def check_launch(lib: str, rc: int, what: str) -> None:
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """Device address of ``t`` (None for a null pointer)."""
     return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# DTensor shards and meta traces
+# ---------------------------------------------------------------------------
+
+#: callbacks ``(name, ops, nbytes)`` of the cost counters that trace a step
+COST_SINKS: list = []
+
+
+def meta_kernel(name: str, ops: float, nbytes: float, out):
+    """A kernel called on ``meta`` tensors: nothing launches and no plain
+    version runs; ``ops`` and ``nbytes`` (the contract's work, as
+    ``chip_smoke.py``'s bounds count it) go to every active cost counter.
+    Returns ``out`` (the wrapper's empty outputs)."""
+    for sink in COST_SINKS:
+        sink(name, float(ops), float(nbytes))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _dtensor_type():
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:          # a torch built without distributed
+        return ()
+    return DTensor
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, _dtensor_type())
+
+
+def settled_placements(x, placements=None) -> list:
+    """``placements`` (default: ``x``'s own) with every Partial sum
+    settled to Replicate."""
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if p.is_partial() else p
+            for p in (placements if placements is not None else x.placements)]
+
+
+def dtensor_local(x, placements=None):
+    """``x``'s local shard after redistributing it to ``placements``
+    (default: its own, with every Partial sum settled to Replicate)."""
+    want = settled_placements(x, placements)
+    if want != list(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    return x.to_local()
+
+
+def from_local(local: torch.Tensor, mesh, placements):
+    """A kernel's local output as a DTensor with ``placements``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, mesh, list(placements), run_check=False)
+
+
+def replicated_like(ref, t: torch.Tensor):
+    """``t`` replicated on ``ref``'s mesh when ``ref`` is a DTensor (an
+    index or accumulator a model step builds beside sharded
+    activations), else ``t`` itself."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return from_local(t, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim)
+
+
+def _gathered(x):
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1 else p for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity forward; backward, ``layout`` applied to the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout = layout
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.layout(g), None
+
+
+def grad_layout(y, layout):
+    """``y`` whose gradient (when ``y`` is a DTensor that autograd
+    records) is laid out by ``layout`` before it flows on: the backward
+    twin of a layout point, where the op the gradient meets next (a view,
+    a product) cannot take the gradient's own layout."""
+    if not is_dtensor(y) or not y.requires_grad:
+        return y
+    return _GradLayout.apply(y, layout)
+
+
+def gather_inner(x):
+    """``x`` with the shards of its inner dimensions (all but the first
+    and the last) gathered when it is a DTensor: the layout of the left
+    operand of a (..., K) x (K, N) product (the sequence-parallel
+    residual meeting a tensor-parallel weight).  DTensor flattens the
+    leading dimensions for the product and, before torch 2.13, refuses
+    to flatten a sharded inner one.  A plain tensor is returned as is."""
+    if not is_dtensor(x) or x.ndim < 3:
+        return x
+    return _gathered(x)
+
+
+def keep_layout(y):
+    """``y`` whose gradient (a DTensor's) takes ``y``'s own placements."""
+    if not is_dtensor(y):
+        return y
+    mesh, pl = y.device_mesh, list(y.placements)
+    return grad_layout(y, lambda g: g if list(g.placements) == pl else g.redistribute(mesh, pl))
+
+
+def product_out(y):
+    """A product's output ``y``, whose gradient (when ``y`` is a DTensor)
+    has its inner shards gathered before the product's backward flattens
+    it: the backward twin of :func:`gather_inner`."""
+    return y if y.ndim < 3 else grad_layout(y, _gathered)
+
+
+def gather_contraction(x, w):
+    """The right operand ``w`` (..., K, N) of a product with ``x`` (..., K),
+    its K shards gathered over every mesh dimension that does not shard
+    ``x``'s K the same way: FSDP's weight all-gather, which keeps the
+    activations where they are (left to itself DTensor may gather the
+    activations instead, a batch of them per device).  Plain tensors are
+    returned as they are."""
+    if not is_dtensor(w) or not is_dtensor(x):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    k = w.ndim - 2
+    pl = [Replicate() if pw.is_shard() and pw.dim == k
+          and not (px.is_shard() and px.dim == x.ndim - 1) else pw
+          for px, pw in zip(x.placements, w.placements)]
+    return w if pl == list(w.placements) else w.redistribute(w.device_mesh, pl)

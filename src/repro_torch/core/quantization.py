@@ -18,6 +18,7 @@ import torch
 __all__ = [
     "QTensor",
     "quantize_pow2",
+    "pow2_exponent",
     "dequantize_pow2",
     "quantize_q16",
     "compress_with_feedback",
@@ -55,6 +56,16 @@ def _ln2(device: torch.device) -> torch.Tensor:
     return torch.log(torch.tensor(2.0, dtype=torch.float32)).to(device)
 
 
+def pow2_exponent(amax: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """int32 ``ceil(log2(amax)) - (bits-1)`` in the reference's f32 form
+    (``jnp.log2`` is ``log(x) / log(2)``), 0 where ``amax == 0``: the
+    shared power-of-two exponent of :func:`quantize_pow2` and of the
+    compressed gradient mean (``optim.grad_compress``)."""
+    safe = torch.clamp_min(amax, 1e-30)
+    e = torch.ceil(torch.log(safe) / _ln2(safe.device)).to(torch.int32) - (bits - 1)
+    return torch.where(amax > 0, e, torch.zeros_like(e))
+
+
 def quantize_pow2(x: torch.Tensor, bits: int = 8, axis: Axis = None) -> QTensor:
     """Quantize to a power-of-two-scaled integer grid.
 
@@ -73,9 +84,7 @@ def quantize_pow2(x: torch.Tensor, bits: int = 8, axis: Axis = None) -> QTensor:
         keep = {a % x.ndim for a in (axis if isinstance(axis, tuple) else (axis,))}
         reduce_axes = tuple(i for i in range(x.ndim) if i not in keep)
         amax = x.abs().amax(dim=reduce_axes, keepdim=True) if reduce_axes else x.abs()
-    safe = torch.clamp_min(amax, 1e-30)
-    e = torch.ceil(torch.log(safe) / _ln2(safe.device)).to(torch.int32) - (bits - 1)
-    e = torch.where(amax > 0, e, torch.zeros_like(e))
+    e = pow2_exponent(amax, bits)
     scale = torch.exp2(-e.to(torch.float32))  # 2**-e, exact for |e| < 127
     qmax = 2 ** (bits - 1) - 1
     q = torch.clamp(torch.round(x * scale), -qmax - 1, qmax).to(_STORAGE[bits])

@@ -28,7 +28,9 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
+from repro_torch.compat import (check_launch, current_stream, dtensor_local, from_local,
+                                is_dtensor, kernel_function, meta_kernel, ptr,
+                                settled_placements)
 from repro_torch.core.cordic import (
     angle_consts,
     atan_table,
@@ -128,10 +130,23 @@ def _device_limbs(rope_dim: int, base: float, device: torch.device):
 def rope_sincos_q16(positions: torch.Tensor, rope_dim: int, base: float = 10000.0):
     """(…) int32 positions -> (…, rope_dim//2) Q16.16 int32 (sin, cos)
     through K3 with the exact phase step fused in."""
+    if is_dtensor(positions):
+        # elementwise in the positions: the local shards' tables
+        pl = settled_placements(positions)
+        tables = rope_sincos_q16(dtensor_local(positions, pl), rope_dim, base)
+        return tuple(from_local(t, positions.device_mesh, pl) for t in tables)
     if positions.dtype != torch.int32:
         raise TypeError(f"rope_sincos_q16: int32 positions required, got {positions.dtype}")
     if positions.device.type == "cpu":
         return rope_sincos_plain(positions, rope_dim, base)
+    if positions.device.type == "meta":
+        n = positions.numel() * (rope_dim // 2)
+        shape = tuple(positions.shape) + (rope_dim // 2,)
+        out = tuple(torch.empty(shape, dtype=torch.int32, device="meta") for _ in range(2))
+        # K3's RoPE form: the fused phase, the range reduction, 16 steps
+        # and the sign flips a table entry (chip_smoke.py's k3_ops)
+        return meta_kernel("rope_sincos_q16", (12 + 8 + 16 * 6 + 2) * n,
+                           4 * positions.numel() + 4 * rope_dim + 8 * n, out)
     if positions.device.type != "cuda":
         raise ValueError(f"rope_sincos_q16: unsupported device {positions.device}")
     if not positions.is_contiguous():

@@ -29,7 +29,9 @@ import functools
 
 import torch
 
-from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
+from repro_torch.compat import (check_launch, current_stream, dtensor_local, from_local,
+                                is_dtensor, kernel_function, meta_kernel, ptr,
+                                settled_placements)
 from repro_torch.core.cordic import (
     HYPER_STAGES,
     ITER_Q24,
@@ -196,10 +198,32 @@ def _atan_params(iterations: int, frac_bits: int):
     return table, angle_consts(frac_bits)[0]
 
 
+def _unary_ops_bound(op: str, stages: int) -> int:
+    """K5's integer operations for one word on its longest branch
+    (``chip_smoke.py``'s ``unary_ops`` counts, which pick the branch from
+    the data; a traced call has none): a CORDIC step 6, an ilog2 15, a
+    shift 4, a 17-step linear division 15 + 8 + 85."""
+    step, ilog2, shift = 6, 15, 4
+    lindiv = ilog2 + 2 * shift + 5 * 17
+    if op == "exp":
+        return 2 + 16 + step * stages
+    if op in ("sqrt", "log"):
+        return 2 + 10 + ilog2 + 2 * shift + step * stages
+    return 12 + 16 + step * stages + lindiv + (3 if op == "sigmoid" else 0)
+
+
 def universal_unary(w_q: torch.Tensor, op: str, stages: int = HYPER_STAGES) -> torch.Tensor:
     """Elementwise Q16.16 ``op`` (sqrt, exp, log, tanh, sigmoid) on int32
     words of any shape, through K5."""
     _check_op(op)
+    if is_dtensor(w_q):
+        # elementwise: the local shards' words
+        pl = settled_placements(w_q)
+        return from_local(universal_unary(dtensor_local(w_q, pl), op, stages),
+                          w_q.device_mesh, pl)
+    if w_q.device.type == "meta":
+        return meta_kernel("universal_unary", _unary_ops_bound(op, stages) * w_q.numel(),
+                           8.0 * w_q.numel(), torch.empty_like(w_q, device="meta"))
     if not _route("universal_unary", w_q):
         return universal_unary_plain(w_q, op, stages)
     shift, atanh, k_h_inv = _hyper_params(stages)

@@ -50,7 +50,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
+from repro_torch.compat import (check_launch, current_stream, dtensor_local, from_local,
+                                is_dtensor, kernel_function, meta_kernel, ptr)
 
 __all__ = ["KEY_TILE", "NEG_INF", "FlashAttentionFn", "bf16_close", "flash_attention",
            "flash_attention_backward", "flash_attention_plain", "p_rounding_case"]
@@ -222,10 +223,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                     window: Optional[int] = None, softcap: Optional[float] = None) -> torch.Tensor:
     """q (B,S,H,D), k (B,Skv,KV,D), v (B,Skv,KV,Dv) -> (B,S,H,Dv) through
     K4; ``softcap`` caps the scores as ``chunked_attention(cap=...)``.
-    Differentiable (:class:`FlashAttentionFn`) when autograd records."""
+    Differentiable (:class:`FlashAttentionFn`) when autograd records.
+    DTensor operands run on their local shards (:func:`_sharded`)."""
+    if is_dtensor(q):
+        return _sharded(q, k, v, causal=causal, window=window, softcap=softcap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
     return _flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def _sharded(q, k, v, **kw):
+    """Attention of DTensor operands on their local shards: a mesh
+    dimension keeps its placement where q, k and v share it and it shards
+    the batch (dim 0) or the heads (dim 2; contiguous blocks keep the GQA
+    map ``h // (H // KV)`` local), and is replicated first otherwise."""
+    from torch.distributed.tensor import Replicate
+
+    pl = []
+    for a, b, c in zip(q.placements, k.placements, v.placements):
+        keep = a == b == c and (a.is_replicate() or (a.is_shard() and a.dim in (0, 2)))
+        pl.append(a if keep else Replicate())
+    out = flash_attention(*(dtensor_local(t, pl) for t in (q, k, v)), **kw)
+    return from_local(out, q.device_mesh, pl)
+
+
+def causal_pairs(S: int, Skv: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the mask leaves: queries at ``arange(S)``, keys
+    at ``arange(Skv)``."""
+    if not causal:
+        return S * Skv
+    i = torch.arange(S, dtype=torch.int64)
+    hi = torch.clamp_max(i, Skv - 1)
+    lo = torch.clamp_min(i - window + 1, 0) if window else torch.zeros_like(i)
+    return int(torch.clamp_min(hi - lo + 1, 0).sum())
 
 
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -245,6 +275,14 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causa
         raise ValueError("flash_attention: operands on several devices")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
+    if q.device.type == "meta":
+        # the contract's work: 2 (D + Dv) operations a (query, key) pair
+        # and head; q, k, v read once, the output written once
+        esz = q.element_size()
+        out = torch.empty((B, S, H, Dv), dtype=q.dtype, device="meta")
+        return meta_kernel("flash_attention",
+                           2.0 * B * H * causal_pairs(S, Skv, causal, window) * (D + Dv),
+                           esz * B * (S * H * (D + Dv) + Skv * KV * (D + Dv)), out)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):

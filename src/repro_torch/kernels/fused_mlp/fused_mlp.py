@@ -30,9 +30,11 @@ import ctypes
 
 import torch
 
-from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
+from repro_torch.compat import (check_launch, current_stream, from_local, is_dtensor,
+                                kernel_function, meta_kernel, ptr)
 from repro_torch.core.cordic import sigmoid_q16_body
-from repro_torch.kernels.qmatmul.qmatmul import MAX_K, _acc_exact
+from repro_torch.kernels.qmatmul.qmatmul import (MAX_K, _acc_exact, column_placements, local_part,
+                                                product_placements)
 
 __all__ = ["swiglu_body_q16", "fused_swiglu", "fused_swiglu_plain", "fused_swiglu_grouped"]
 
@@ -87,7 +89,20 @@ def _run(wrapper, x_q, wg_q, wu_q, ea, eg, eu, return_parts):
     """Check G hidden stages — ``x_q`` (G, M, K), ``wg_q``/``wu_q`` (G, K,
     F), ``eg``/``eu`` (G, F) — and run them: the plain version for a CPU
     tensor, ONE K2 launch for all G groups for a CUDA tensor (counted on
-    ``wrapper.launches``), or raise."""
+    ``wrapper.launches``), the contract's cost for a ``meta`` tensor, the
+    local shards' stages for DTensors (``qmatmul.product_placements``), or
+    raise."""
+    if is_dtensor(x_q):
+        from torch.distributed.tensor import Replicate
+
+        pa, pb, po = product_placements(x_q, wg_q)
+        pe = column_placements(pb)
+        out = _run(wrapper, local_part(x_q, pa), local_part(wg_q, pb), local_part(wu_q, pb),
+                   local_part(ea, [Replicate()] * len(pa)), local_part(eg, pe),
+                   local_part(eu, pe), return_parts)
+        mesh = x_q.device_mesh
+        return (tuple(from_local(o, mesh, po) for o in out) if return_parts
+                else from_local(out, mesh, po))
     name = wrapper.__name__
     if x_q.dtype != torch.int8 or wg_q.dtype != torch.int8 or wu_q.dtype != torch.int8:
         raise TypeError(f"{name}: int8 operands required")
@@ -105,6 +120,13 @@ def _run(wrapper, x_q, wg_q, wu_q, ea, eg, eu, return_parts):
         raise ValueError(f"{name}: operands on several devices")
     if x_q.device.type == "cpu":
         return fused_swiglu_plain(x_q, wg_q, wu_q, ea, eg, eu, return_parts=return_parts)
+    if x_q.device.type == "meta":
+        outs = [torch.empty((G, M, F), dtype=dt, device="meta")
+                for dt in ((torch.float32, torch.int32, torch.int32) if return_parts
+                           else (torch.float32,))]
+        return meta_kernel(name, 4.0 * G * M * F * K,
+                           G * (M * K + 2 * K * F + 8 * F) + 4 + 4 * len(outs) * G * M * F,
+                           tuple(outs) if return_parts else outs[0])
     if x_q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x_q.device}")
     for arg, t in (("x_q", x_q), ("wg_q", wg_q), ("wu_q", wu_q), ("eg", eg), ("eu", eu)):

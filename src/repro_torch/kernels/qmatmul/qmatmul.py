@@ -42,7 +42,8 @@ import ctypes
 
 import torch
 
-from repro_torch.compat import check_launch, current_stream, kernel_function, ptr
+from repro_torch.compat import (check_launch, current_stream, dtensor_local, from_local,
+                                is_dtensor, kernel_function, meta_kernel, ptr)
 
 __all__ = ["EPILOGUES", "qmatmul", "qmatmul_plain", "qmatmul_grouped", "MAX_K"]
 
@@ -87,10 +88,57 @@ def qmatmul_plain(a_q, b_q, ea, eb, epilogue: str = "float") -> torch.Tensor:
     return _epilogue_plain(acc, e, epilogue)
 
 
+def product_placements(a, b):
+    """Placements, per mesh dimension, under which a (G, M, K) x (G, K, N)
+    product of DTensors runs on the local shards: the contraction K
+    replicated, the groups sharded on both operands or neither, and a
+    mesh dimension that would shard both the rows M and the columns N
+    gathers the rows (activations, not weights).  Returns (a's, b's,
+    the output's)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pa, pb, po = [], [], []
+    for x, y in zip(a.placements, b.placements):
+        xs = x.dim if x.is_shard() and x.dim != 2 else None
+        ys = y.dim if y.is_shard() and y.dim != 1 else None
+        if xs == 0 or ys == 0:
+            xs = ys = 0
+        elif xs == 1 and ys == 2:
+            xs = None
+        pa.append(Replicate() if xs is None else Shard(xs))
+        pb.append(Replicate() if ys is None else Shard(ys))
+        po.append(Replicate() if xs is None and ys is None else Shard(ys if xs is None else xs))
+    return pa, pb, po
+
+
+def column_placements(pb):
+    """Placements of (G, N) per-column exponents for a (G, K, N) operand
+    placed as ``pb``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2) else Replicate()
+            for p in pb]
+
+
+def local_part(t, placements):
+    """A DTensor's local shard under ``placements`` (a plain tensor is
+    taken as replicated)."""
+    return dtensor_local(t, placements) if is_dtensor(t) else t
+
+
 def _run(wrapper, a_q, b_q, ea, eb, epilogue):
     """Check a (G, M, K) x (G, K, N) product and run it: the plain
     version for a CPU tensor, ONE K1 launch for all G groups for a CUDA
-    tensor (counted on ``wrapper.launches``), or raise."""
+    tensor (counted on ``wrapper.launches``), the contract's cost for a
+    ``meta`` tensor, the local shards' product for DTensors, or raise."""
+    if is_dtensor(a_q):
+        from torch.distributed.tensor import Replicate
+
+        pa, pb, po = product_placements(a_q, b_q)
+        out = _run(wrapper, local_part(a_q, pa), local_part(b_q, pb),
+                   local_part(ea, [Replicate()] * len(pa)),
+                   local_part(eb, column_placements(pb)), epilogue)
+        return from_local(out, a_q.device_mesh, po)
     name = wrapper.__name__
     if epilogue not in EPILOGUES:
         raise ValueError(f"{name}: epilogue {epilogue!r} not in {EPILOGUES}")
@@ -111,6 +159,11 @@ def _run(wrapper, a_q, b_q, ea, eb, epilogue):
         raise ValueError(f"{name}: operands on several devices {devs}")
     if a_q.device.type == "cpu":
         return qmatmul_plain(a_q, b_q, ea, eb, epilogue)
+    if a_q.device.type == "meta":
+        out = torch.empty((G, M, N), dtype=torch.float32 if epilogue == "float" else torch.int32,
+                          device="meta")
+        return meta_kernel(name, 2.0 * G * M * N * K,
+                           G * (M * K + K * N + 4 * N) + 4 + 4 * G * M * N, out)
     if a_q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a_q.device}")
     for arg, t in (("a_q", a_q), ("b_q", b_q), ("eb", eb)):

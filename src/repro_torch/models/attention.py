@@ -51,11 +51,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.compat import resolve_device
+from repro_torch.compat import gather_inner, resolve_device
 from repro_torch.core.quantization import quantize_pow2
 from repro_torch.kernels.flashattn import NEG_INF, flash_attention
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.layers import Spec, apply_rope, attn_norm_spec, pdot, rms_norm, rope_tables
+from repro_torch.models.layers import (Spec, apply_rope, attn_norm_spec, merge_heads,
+                                       no_constrain, pdot, rms_norm, rope_tables, split_heads)
 
 __all__ = [
     "attn_specs",
@@ -310,7 +311,7 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
                       positions: torch.Tensor, mode: str = "precise", cache=None,
                       prefill: bool = False, lane_mask: Optional[torch.Tensor] = None,
                       rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      seg_aux: Optional[dict] = None):
+                      seg_aux: Optional[dict] = None, constrain=no_constrain):
     """x (B,S,d) -> (out, cache).  ``cache=None``: no cache (positions
     must be ``arange(S)``); ``prefill``: K4 attention + rows [0, S)
     written; S == 1: decode against the cache; S > 1: a segment at
@@ -318,17 +319,23 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
     in ``seg_aux`` when given.  ``rope``: the (sin, cos) tables of
     ``positions`` at this rung, built once a pass by the model
     (``rope_tables(positions, cfg.head_dim, cfg.rope_base, mode)``);
-    without them they are built here."""
+    without them they are built here.  ``constrain``: the sharded cells'
+    layout hook (``heads4d`` on the rotated q, k and v, as the
+    reference's ``attention.py:356-358``)."""
     B, S, _ = x.shape
-    h = rms_norm(x, params["norm"], cfg.rms_eps)
-    q = pdot(h, params["wq"], mode, wq=params.get("wq_q")).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = pdot(h, params["wk"], mode, wq=params.get("wk_q")).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = pdot(h, params["wv"], mode, wq=params.get("wv_q")).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    h = gather_inner(rms_norm(x, params["norm"], cfg.rms_eps))
+    hd = cfg.head_dim
+    q = split_heads(pdot(h, params["wq"], mode, wq=params.get("wq_q")), cfg.n_heads, hd, constrain)
+    k = split_heads(pdot(h, params["wk"], mode, wq=params.get("wk_q")), cfg.n_kv_heads, hd,
+                    constrain)
+    v = split_heads(pdot(h, params["wv"], mode, wq=params.get("wv_q")), cfg.n_kv_heads, hd,
+                    constrain)
 
     sin, cos = rope if rope is not None else rope_tables(positions, cfg.head_dim, cfg.rope_base,
                                                          mode)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
+    q = constrain(apply_rope(q, sin, cos), "heads4d")
+    k = constrain(apply_rope(k, sin, cos), "heads4d")
+    v = constrain(v, "heads4d")
 
     if cache is None or prefill:
         out = flash_attention(q, k, v.contiguous(), causal=True, window=layer.window,
@@ -366,7 +373,7 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, layer: La
     else:
         out = _segment_attention(cache, q, k, v, positions, layer, cfg, seg_aux)
 
-    out = pdot(out.reshape(B, S, cfg.n_heads * cfg.head_dim), params["wo"], mode,
+    out = pdot(merge_heads(out, constrain), params["wo"], mode,
                wq=params.get("wo_q"))
     return out, cache
 
@@ -399,7 +406,7 @@ def mla_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: t
                 mode: str = "precise", cache=None, prefill: bool = False,
                 lane_mask: Optional[torch.Tensor] = None,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                seg_aux: Optional[dict] = None):
+                seg_aux: Optional[dict] = None, constrain=no_constrain):
     """Multi-head latent attention, x (B,S,d) -> (out, cache), with the
     cases and in-place rules of :func:`attention_forward`: prefill on K4
     (latent expanded to per-head keys of nope + rope dims and values of
@@ -410,10 +417,11 @@ def mla_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: t
     H = cfg.n_heads
     nope, rope_d, vd, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
 
-    h = rms_norm(x, params["norm"], cfg.rms_eps)
+    h = gather_inner(rms_norm(x, params["norm"], cfg.rms_eps))
     q_lat = rms_norm(pdot(h, params["wq_a"], mode, wq=params.get("wq_a_q")), params["q_norm"],
                      cfg.rms_eps)
-    q = pdot(q_lat, params["wq_b"], mode, wq=params.get("wq_b_q")).reshape(B, S, H, nope + rope_d)
+    q = split_heads(pdot(q_lat, params["wq_b"], mode, wq=params.get("wq_b_q")), H, nope + rope_d,
+                    constrain)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
 
     kv_a = pdot(h, params["wkv_a"], mode, wq=params.get("wkv_a_q"))
@@ -432,8 +440,9 @@ def mla_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: t
         k_nope = torch.einsum("bsr,rhd->bshd", ckv.to(f32), w_uk.to(f32)).to(x.dtype)
         v = torch.einsum("bsr,rhd->bshd", ckv.to(f32), w_uv.to(f32)).to(x.dtype)
         k_rope_b = k_rope[:, :, None, :].expand(B, S, H, rope_d).to(x.dtype)
-        k = torch.cat([k_nope, k_rope_b], dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k = constrain(torch.cat([k_nope, k_rope_b], dim=-1), "heads4d")
+        v = constrain(v, "heads4d")
+        q_full = constrain(torch.cat([q_nope, q_rope], dim=-1), "heads4d")
         out = flash_attention(q_full, k, v.contiguous(), causal=True)
         if prefill:
             for name, seg in (("ckv", ckv), ("krope", k_rope), ("pos", positions)):
@@ -467,5 +476,5 @@ def mla_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions: t
             out = torch.where(lane_mask.to(torch.bool)[:, None, None, None], out, own)
         out = out.to(x.dtype)
 
-    out = pdot(out.reshape(B, S, H * vd), params["wo"], mode, wq=params.get("wo_q"))
+    out = pdot(merge_heads(out, constrain), params["wo"], mode, wq=params.get("wo_q"))
     return out, cache

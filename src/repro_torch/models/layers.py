@@ -38,6 +38,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.compat import (gather_contraction, gather_inner, grad_layout, product_out,
+                                replicated_like)
 from repro_torch.core.qformat import Q16_16, from_fixed
 from repro_torch.core.quantization import quantize_pow2
 from repro_torch.kernels.cordic import rope_sincos_q16
@@ -67,7 +69,35 @@ __all__ = [
     "attn_norm_spec",
     "WEIGHT_KEYS",
     "attach_quantized_weights",
+    "no_constrain",
+    "split_heads",
+    "merge_heads",
 ]
+
+
+def no_constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The models' default ``constrain`` hook: the identity.  The sharded
+    cells (``launch.steps._make_constrain``) pass one that lays a
+    ``residual``, ``heads4d``, ``moe4d`` or ``moe3d`` activation out on
+    the mesh; on a plain tensor every hook returns its input."""
+    return x
+
+
+def split_heads(x: torch.Tensor, n: int, d: int, constrain=no_constrain) -> torch.Tensor:
+    """(..., n*d) -> (..., n, d).  The hook sees the flat axis first as
+    kind ``("heads3d", n)``: a sharded cell cannot split a sharded axis
+    into ``n`` heads unless its mesh divides ``n`` (the port's own layout
+    point; GSPMD reshards there unasked)."""
+    return constrain(x, ("heads3d", n)).reshape(*x.shape[:-1], n, d)
+
+
+def merge_heads(x: torch.Tensor, constrain=no_constrain) -> torch.Tensor:
+    """(..., n, d) -> (..., n*d), :func:`split_heads` undone; in a sharded
+    cell the gradient meets the hook as kind ``("heads3d", n)`` before it
+    splits back into the heads."""
+    n = x.shape[-2]
+    y = x.reshape(*x.shape[:-2], n * x.shape[-1])
+    return grad_layout(y, lambda g: constrain(g, ("heads3d", n)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,13 +176,17 @@ def dot_fast_int8(x: torch.Tensor, w: torch.Tensor, wq=None) -> torch.Tensor:
 
 def pdot(x: torch.Tensor, w: torch.Tensor, mode: str = "precise", wq=None) -> torch.Tensor:
     """𝒟[matmul]: FAST -> K1 W8A8 (bf16 out); EXACT -> f32 matmul;
-    PRECISE -> bf16 matmul."""
+    PRECISE -> bf16 matmul.  A DTensor ``x`` has its inner dimensions
+    gathered first, and so has the product's gradient, and ``w`` its
+    contraction shards (``compat.gather_inner``, ``product_out``,
+    ``gather_contraction``; K1 gathers its int8 operand itself)."""
+    x = gather_inner(x)
     if is_fast_mode(mode):
         if mode == "fast8":
             x = snap_q8_8(x)
-        return dot_fast_int8(x, w, wq=wq).to(torch.bfloat16)
+        return product_out(dot_fast_int8(x, w, wq=wq)).to(torch.bfloat16)
     dt = torch.float32 if mode == "exact" else torch.bfloat16
-    return torch.matmul(x.to(dt), w.to(dt))
+    return product_out(torch.matmul(x.to(dt), gather_contraction(x, w.to(dt))))
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +267,7 @@ def rope_tables(positions: torch.Tensor, rope_dim: int, base: float = 10000.0,
         sin_q, cos_q = rope_sincos_q16(positions.to(torch.int32).contiguous(), rope_dim, base)
         return from_fixed(sin_q, Q16_16), from_fixed(cos_q, Q16_16)
     ar = torch.arange(half, dtype=torch.float32, device=positions.device)
-    inv_freq = base ** (-2.0 * ar / rope_dim)
+    inv_freq = replicated_like(positions, base ** (-2.0 * ar / rope_dim))
     angle = positions[..., None].to(torch.float32) * inv_freq
     return torch.sin(angle), torch.cos(angle)
 
@@ -281,7 +315,7 @@ def swiglu_mlp(params: dict, x: torch.Tensor, mode: str = "precise", eps: float 
     """SwiGLU MLP with the per-op dispatch: FAST on cached weights is
     K2 then K1; otherwise three ``pdot`` products around ``psilu`` (FAST:
     K1 and the CORDIC sigmoid on K5)."""
-    h = rms_norm(x, params["norm"], eps)
+    h = gather_inner(rms_norm(x, params["norm"], eps))
     if is_fast_mode(mode) and "w_gate_q" in params:
         if mode == "fast8":
             h = snap_q8_8(h)

@@ -37,10 +37,13 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from repro_torch.compat import resolve_device
+from repro_torch.compat import (gather_contraction, gather_inner, is_dtensor, keep_layout,
+                                product_out, replicated_like, resolve_device,
+                                settled_placements)
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Spec, init_from_specs, rms_norm, rope_tables, softcap
+from repro_torch.models.layers import (Spec, init_from_specs, no_constrain, rms_norm,
+                                       rope_tables, softcap)
 from repro_torch.models.transformer import init_period_cache, period_forward, period_specs
 
 __all__ = [
@@ -183,8 +186,16 @@ def layer_params(params: dict, i: int) -> dict:
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     # the reference casts the table to bf16 BEFORE the gather (the same
-    # values: the rows are rounded either way)
-    x = params["embed"][tokens].to(torch.bfloat16)
+    # values: the rows are rounded either way).  A sharded table (a DTensor)
+    # goes through ``embedding``, which DTensor looks up shard by shard; its
+    # masked partial sums are settled at once (DTensor reduces a masked
+    # partial only once, and the residual is read twice)
+    table = params["embed"]
+    if is_dtensor(table):
+        x = torch.nn.functional.embedding(tokens, table)
+        x = x.redistribute(x.device_mesh, settled_placements(x)).to(torch.bfloat16)
+    else:
+        x = table[tokens].to(torch.bfloat16)
     if extra_embeds is not None and cfg.stub_prefix_len:
         P = cfg.stub_prefix_len
         x = torch.cat([x[:, :P] + extra_embeds.to(x.dtype), x[:, P:]], dim=1)
@@ -199,6 +210,7 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor, mode: str) -> torch.T
     """Last-position logits, soft-capped (gemma2) at the rung's
     precision: the FAST cap is the CORDIC tanh on K5."""
     head = _lm_head(params, cfg)
+    x = gather_inner(x)
     if mode == "exact":
         logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
     else:
@@ -209,7 +221,7 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor, mode: str) -> torch.T
 
 
 def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
-            seg_aux=None):
+            seg_aux=None, constrain=no_constrain):
     """Walk the periods.  ``seg_aux``: a dict a segment pass fills with
     every layer's rollback state, stacked to leaves ``(n_periods, ...)``
     under ``pos{i}``."""
@@ -225,7 +237,8 @@ def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
         # the MoE aux losses are training's (train_loss); serving reads none
         x, _, _ = period_forward(layer_params(params, i), x, cfg, positions=positions,
                                  mode=mode, caches=cache_i, prefill=prefill,
-                                 lane_mask=lane_mask, rope=rope, seg_aux=aux_i, aux=False)
+                                 lane_mask=lane_mask, rope=rope, seg_aux=aux_i, aux=False,
+                                 constrain=constrain)
         per_period.append(aux_i)
     if seg_aux is not None:
         for key in per_period[0]:
@@ -235,16 +248,20 @@ def _layers(params, x, caches, cfg, positions, mode, *, prefill, lane_mask=None,
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ModelConfig,
-                 mode: str = "precise", extra_embeds: Optional[torch.Tensor] = None):
+                 mode: str = "precise", extra_embeds: Optional[torch.Tensor] = None,
+                 constrain=no_constrain):
     """tokens (B,S) from position 0 -> (last-position logits (B,V) f32,
     caches) with rows [0, S) of ``caches`` written in place.
-    ``extra_embeds`` (B, P, d): a modality stub's prefix embeddings."""
+    ``extra_embeds`` (B, P, d): a modality stub's prefix embeddings.
+    ``constrain``: the sharded cells' layout hook (``layers.no_constrain``
+    by default), handed to every layer."""
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    positions = replicated_like(tokens, torch.arange(S, dtype=torch.int32,
+                                                     device=tokens.device)[None].expand(B, S))
     x = _embed(params, tokens, cfg, extra_embeds)
     if mode == "exact":
         x = x.to(torch.float32)
-    x = _layers(params, x, caches, cfg, positions, mode, prefill=True)
+    x = _layers(params, x, caches, cfg, positions, mode, prefill=True, constrain=constrain)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     return _head(params, cfg, x[:, 0], mode), caches
 
@@ -255,14 +272,14 @@ def prefill_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ModelCon
 
 
 def _period_train(params: dict, i: int, x: torch.Tensor, cfg: ModelConfig, positions, mode,
-                  rope):
+                  rope, constrain=no_constrain):
     x, _, aux = period_forward(layer_params(params, i), x, cfg, positions=positions, mode=mode,
-                               rope=rope)
+                               rope=rope, constrain=constrain)
     return x, aux
 
 
 def _backbone_train(params: dict, x: torch.Tensor, cfg: ModelConfig, positions, mode: str,
-                    remat: bool):
+                    remat: bool, constrain=no_constrain):
     """The periods without caches -> (x, summed MoE aux losses (2,)).
     ``remat``: each period is checkpointed (``jax.checkpoint`` per scanned
     period in the reference): the backward recomputes its forward,
@@ -271,18 +288,25 @@ def _backbone_train(params: dict, x: torch.Tensor, cfg: ModelConfig, positions, 
     step), and enter each period as inputs."""
     rope = (rope_tables(positions, cfg.rope_dim, cfg.rope_base, mode)
             if cfg.has_attention else None)
-    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    aux = replicated_like(x, torch.zeros((2,), dtype=torch.float32, device=x.device))
     for i in range(cfg.n_periods):
         if remat:
             # early stop off: the recompute runs the whole period, so a
             # step's launches are the same whatever autograd saves
             with set_checkpoint_early_stop(False):
                 x, a = checkpoint(_period_train, params, i, x, cfg, positions, mode, rope,
-                                  use_reentrant=False)
+                                  constrain, use_reentrant=False)
         else:
-            x, a = _period_train(params, i, x, cfg, positions, mode, rope)
+            x, a = _period_train(params, i, x, cfg, positions, mode, rope, constrain)
         aux = aux + a
     return x, aux
+
+
+def _vocab_sharded(x) -> bool:
+    """A DTensor whose last (vocab) dimension a mesh dimension of more
+    than one device shards."""
+    return is_dtensor(x) and any(p.is_shard(x.ndim - 1) and size > 1
+                                 for p, size in zip(x.placements, x.device_mesh.shape))
 
 
 def _ce_chunk(h, head, labels, mask, cap, mode):
@@ -290,10 +314,25 @@ def _ce_chunk(h, head, labels, mask, cap, mode):
     hidden rows and head (the reference's ``jnp.dot(bf16, bf16,
     preferred_element_type=f32)``), the final softcap at the rung, then
     (sum CE, sum z, count)."""
-    logits = torch.matmul(h.to(torch.bfloat16).to(torch.float32), head)
+    logits = product_out(torch.matmul(h.to(torch.bfloat16).to(torch.float32), head))
     logits = softcap(logits, cap, mode)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    V = logits.shape[-1]
+    if _vocab_sharded(logits):
+        # vocab-parallel: the shards' max and sum of exponentials meet in
+        # two small all-reduces (DTensor's logsumexp would gather the rows);
+        # the gradients keep the logits' layout
+        logits = keep_layout(logits)
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        lse = (m + torch.log(keep_layout(torch.exp(logits - m)).sum(dim=-1, keepdim=True)))[..., 0]
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+    if is_dtensor(logits):
+        # a sharded cell: each vocab shard sums the label logits it holds
+        # (DTensor's masked gather has no meta kernel before torch 2.13)
+        vocab = replicated_like(logits, torch.arange(V, device=logits.device))
+        gold = torch.where(vocab == labels[..., None].to(torch.int64), logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
     ce = (lse - gold) * mask
     return ce.sum(), ((lse * mask) ** 2).sum(), mask.sum()
 
@@ -305,10 +344,12 @@ def _chunked_ce(hidden, head, labels, mask, cfg: ModelConfig, chunk: int = 256,
     checkpointed, so its (B, chunk, V) logits are transient: the backward
     recomputes them (the softcap's K5 launch included on the FAST rung).
     The head is rounded to bf16 once, outside the chunks."""
+    hidden = gather_inner(hidden)  # a sharded cell's chunks slice whole rows
     S = hidden.shape[1]
     chunk = min(chunk, S)
-    head = head.to(torch.bfloat16).to(torch.float32)
-    loss_s = z_s = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    head = gather_contraction(hidden, head.to(torch.bfloat16).to(torch.float32))
+    loss_s = z_s = cnt = replicated_like(hidden, torch.zeros((), dtype=torch.float32,
+                                                             device=hidden.device))
     for c0 in range(0, S, chunk):
         sl = slice(c0, c0 + chunk)
         with set_checkpoint_early_stop(False):
@@ -319,22 +360,25 @@ def _chunked_ce(hidden, head, labels, mask, cfg: ModelConfig, chunk: int = 256,
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig, mode: str = "precise",
-               remat: bool = True, z_coef: float = 1e-4):
+               remat: bool = True, z_coef: float = 1e-4, constrain=no_constrain):
     """batch: ``tokens`` (B,S), ``labels`` (B,S), optional ``loss_mask``
     and ``extra_embeds`` -> (loss, metrics) with metrics ``ce``,
     ``z_loss``, ``tokens`` and, for MoE models, ``moe_lb`` / ``moe_z``
     (0-dim f32 tensors).  Differentiable: the FAST rung's kernels carry
     straight-through (K1, K5) or written-out (K4) gradients; no cache is
-    touched."""
+    touched.  ``constrain``: the sharded cells' layout hook, on the
+    embedded residual (``model.py:285``) and in every layer."""
     tokens, labels = batch["tokens"], batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        mask = torch.ones_like(labels, dtype=torch.float32)
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    positions = replicated_like(tokens, torch.arange(S, dtype=torch.int32,
+                                                     device=tokens.device)[None].expand(B, S))
 
     x = _embed(params, tokens, cfg, batch.get("extra_embeds"))
-    x, aux = _backbone_train(params, x, cfg, positions, mode, remat)
+    x = constrain(x, "residual")
+    x, aux = _backbone_train(params, x, cfg, positions, mode, remat, constrain)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
 
     loss_s, z_s, cnt = _chunked_ce(x, _lm_head(params, cfg), labels, mask, cfg, mode=mode)
@@ -352,7 +396,8 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig, mode: str = "precise
 
 def decode_step(params: dict, token: torch.Tensor, position: torch.Tensor, caches: dict,
                 cfg: ModelConfig, mode: str = "precise",
-                lane_mask: Optional[torch.Tensor] = None, pristine_view: bool = True):
+                lane_mask: Optional[torch.Tensor] = None, pristine_view: bool = True,
+                constrain=no_constrain):
     """token (B,1) at ``position`` (B,) -> (logits (B,V) f32, caches).
 
     ``lane_mask`` (B,) zeroes non-member lanes at the embedding and
@@ -373,14 +418,14 @@ def decode_step(params: dict, token: torch.Tensor, position: torch.Tensor, cache
     if lane_mask is not None:
         x = x * lane_mask.to(x.dtype)[:, None, None]
     x = _layers(params, x, caches, cfg, positions, mode, prefill=False,
-                lane_mask=lane_mask if pristine_view else None)
+                lane_mask=lane_mask if pristine_view else None, constrain=constrain)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head(params, cfg, x[:, 0], mode), caches
 
 
 def segment_step(params: dict, tokens: torch.Tensor, positions: torch.Tensor, caches: dict,
                  cfg: ModelConfig, mode: str = "exact",
-                 lane_mask: Optional[torch.Tensor] = None):
+                 lane_mask: Optional[torch.Tensor] = None, constrain=no_constrain):
     """Mid-sequence segment forward: ``tokens`` (B,S) at explicit
     ``positions`` (B,S) against populated caches, all S positions in one
     pass (the speculative verify, a chunk of the chunked prefill).
@@ -405,7 +450,7 @@ def segment_step(params: dict, tokens: torch.Tensor, positions: torch.Tensor, ca
         x = x * lane_mask.to(x.dtype)[:, None, None]
     seg_aux: dict = {}
     x = _layers(params, x, caches, cfg, positions.to(torch.int32), mode, prefill=False,
-                seg_aux=seg_aux)
+                seg_aux=seg_aux, constrain=constrain)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head(params, cfg, x, mode), caches, seg_aux
 

@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.compat import gather_inner
 from repro_torch.core.quantization import quantize_pow2
 from repro_torch.kernels.fused_mlp import fused_swiglu_grouped
 from repro_torch.kernels.qmatmul import qmatmul_grouped
@@ -52,6 +53,7 @@ from repro_torch.models.layers import (
     Spec,
     attn_norm_spec,
     is_fast_mode,
+    no_constrain,
     psilu,
     rms_norm,
     snap_q8_8,
@@ -110,7 +112,7 @@ def _fused_expert_mlp(params: dict, xe: torch.Tensor) -> torch.Tensor:
 
 
 def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "precise", *,
-                aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                aux: bool = True, constrain=no_constrain) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (B, S, d) -> (out (B, S, d) in x's dtype, aux losses (2,) f32:
     load balance and router z).  ``aux=False`` (serving, which reads no
     loss) skips the losses' reductions and returns None for them: eager
@@ -119,7 +121,7 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "pr
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     dev = x.device
-    h = rms_norm(x, params["norm"], cfg.rms_eps)                  # (B,S,d)
+    h = gather_inner(rms_norm(x, params["norm"], cfg.rms_eps))                  # (B,S,d)
     N = S * k
     C = _capacity(S, cfg)
 
@@ -147,23 +149,24 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "pr
     lanes = torch.arange(B, device=dev)[:, None]
     h_pad = torch.cat([h, torch.zeros((B, 1, d), dtype=h.dtype, device=dev)], dim=1)
     xe = h_pad[lanes, idx_buf[:, :E * C]].reshape(B, E, C, d)    # GATHER
+    xe = constrain(xe, "moe4d")
 
     # ---- the experts' SwiGLU: weights read once per layer -------------------
     dt = torch.float32 if mode == "exact" else torch.bfloat16
     if is_fast_mode(mode) and "w_gate_q" in params:
         if mode == "fast8":
             xe = snap_q8_8(xe)
-        ye = _fused_expert_mlp(params, xe).to(dt)
+        ye = constrain(_fused_expert_mlp(params, xe).to(dt), "moe4d")
     else:
         gate = torch.einsum("becd,edf->becf", xe.to(dt), params["w_gate"].to(dt))
         up = torch.einsum("becd,edf->becf", xe.to(dt), params["w_up"].to(dt))
         act = psilu(gate.to(torch.float32), mode).to(dt) * up
-        ye = torch.einsum("becf,efd->becd", act, params["w_down"].to(dt))
+        ye = constrain(torch.einsum("becf,efd->becd", act, params["w_down"].to(dt)), "moe4d")
 
     # ---- combine: each token's k picks in ascending expert order -----------
     gate_sorted = gate_vals.reshape(B, N).gather(-1, order)
     picked = ye.reshape(B, E * C, d)[lanes, torch.where(keep, slot, 0)]       # (B,N,d)
-    contrib = picked * (gate_sorted * keep).to(picked.dtype)[..., None]
+    contrib = constrain(picked * (gate_sorted * keep).to(picked.dtype)[..., None], "moe3d")
     # sorted position of each (token, pick) pair; a token's picks in
     # sorted order are its picks in ascending expert order
     rank = torch.empty_like(order).scatter_(1, order, torch.arange(N, device=dev).expand(B, N))
@@ -172,6 +175,7 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "pr
     y = torch.zeros((B, S, d), dtype=torch.float32, device=dev)
     for j in range(k):
         y = y + by_token[:, :, j]
+    y = constrain(y, "residual")
 
     if not aux:
         return y.to(x.dtype), None

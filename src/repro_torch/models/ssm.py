@@ -35,9 +35,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.compat import resolve_device
+from repro_torch.compat import gather_inner, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Spec, attn_norm_spec, pdot, rms_norm
+from repro_torch.models.layers import Spec, attn_norm_spec, merge_heads, no_constrain, pdot, rms_norm
 
 __all__ = ["ssm_specs", "ssm_forward", "init_ssm_cache", "reset_ssm_cache_slot"]
 
@@ -189,7 +189,8 @@ def _recurrence_step(state, x, dt, A, Bv, Cv):
 def ssm_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "precise",
                 cache: Optional[dict] = None, prefill: bool = False,
                 lane_mask: Optional[torch.Tensor] = None,
-                seg_aux: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
+                seg_aux: Optional[dict] = None,
+                constrain=no_constrain) -> Tuple[torch.Tensor, Optional[dict]]:
     """x (B,S,d) -> (out, cache).  ``cache=None`` or ``prefill``: the
     chunked dual form from a zero state (``prefill`` writes the final
     ``state`` and ``conv`` in place); S == 1: one recurrence step from the
@@ -203,7 +204,7 @@ def ssm_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str = 
     gs = s.n_groups * s.d_state
     f32 = torch.float32
 
-    h = rms_norm(x, params["norm"], cfg.rms_eps)
+    h = gather_inner(rms_norm(x, params["norm"], cfg.rms_eps))
     z = pdot(h, params["wz"], mode, wq=params.get("wz_q"))
     xs = pdot(h, params["wx"], mode, wq=params.get("wx_q"))
     Bp = pdot(h, params["wB"], mode, wq=params.get("wB_q"))
@@ -223,7 +224,7 @@ def ssm_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str = 
     # silu in f32, stored bf16 off the exact rung (the reference's buffers)
     conv_dt = f32 if mode == "exact" else torch.bfloat16
     conv_out = torch.nn.functional.silu(conv_out.to(f32)).to(conv_dt)
-    xs = conv_out[..., :d_in].reshape(B, S, nh, s.head_dim)
+    xs = constrain(conv_out[..., :d_in].reshape(B, S, nh, s.head_dim), "heads4d")
     Bp = conv_out[..., d_in:d_in + gs]
     Cp = conv_out[..., d_in + gs:]
 
@@ -262,7 +263,7 @@ def ssm_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str = 
         cache["conv"].copy_(new_conv)
 
     y = y + xs.to(f32) * params["D"][None, None, :, None]
-    y = y.reshape(B, S, d_in)
+    y = merge_heads(y, constrain)
     y = y * torch.nn.functional.silu(z.to(f32))
     y = rms_norm(y.to(x.dtype), params["out_norm"], cfg.rms_eps)
     out = pdot(y, params["wo"], mode, wq=params.get("wo_q"))

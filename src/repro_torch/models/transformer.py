@@ -19,12 +19,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.compat import resolve_device
+from repro_torch.compat import replicated_like, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.layers import mlp_specs, swiglu_mlp
+from repro_torch.models.layers import mlp_specs, no_constrain, swiglu_mlp
 
 __all__ = ["period_specs", "period_forward", "init_period_cache"]
 
@@ -84,7 +84,7 @@ def period_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions
                    lane_mask: Optional[torch.Tensor] = None,
                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                    seg_aux: Optional[dict] = None, aux: bool = True,
-                   ) -> Tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
+                   constrain=no_constrain) -> Tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
     """Apply one period; returns (x, caches, aux losses (2,)) with
     ``caches`` updated in place (the same dict) and ``aux`` the sum of
     the period's MoE losses (zeros without MoE; None with ``aux=False``,
@@ -94,8 +94,12 @@ def period_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions
     dict that a segment pass fills with each layer's rollback state under
     ``seg_aux[f"pos{i}"]`` (the rows an attention or MLA segment
     overwrote; an SSM layer's per-position states, conv history and
-    pre-segment state, see ``ssm.ssm_forward``)."""
-    total = torch.zeros((2,), dtype=torch.float32, device=x.device) if aux else None
+    pre-segment state, see ``ssm.ssm_forward``).  ``constrain``: the
+    sharded cells' layout hook, handed to every layer and applied to the
+    residual after each mixer and feed-forward (``transformer.py:122``,
+    ``:130``)."""
+    total = (replicated_like(x, torch.zeros((2,), dtype=torch.float32, device=x.device))
+             if aux else None)
     for i, spec in enumerate(cfg.period):
         p = params[f"pos{i}"]
         cache_i = caches.get(f"pos{i}") if caches is not None else None
@@ -104,25 +108,28 @@ def period_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions
             h, _ = attn.attention_forward(
                 p["mixer"], x, cfg, spec, positions=positions, mode=mode, cache=cache_i,
                 prefill=prefill, lane_mask=lane_mask, rope=rope, seg_aux=layer_aux,
+                constrain=constrain,
             )
         elif spec.kind == "mla":
             h, _ = attn.mla_forward(
                 p["mixer"], x, cfg, positions=positions, mode=mode, cache=cache_i,
                 prefill=prefill, lane_mask=lane_mask, rope=rope, seg_aux=layer_aux,
+                constrain=constrain,
             )
         else:
             h, _ = ssm_mod.ssm_forward(p["mixer"], x, cfg, mode=mode, cache=cache_i,
-                                       prefill=prefill, lane_mask=lane_mask, seg_aux=layer_aux)
+                                       prefill=prefill, lane_mask=lane_mask, seg_aux=layer_aux,
+                                       constrain=constrain)
         if seg_aux is not None:
             seg_aux[f"pos{i}"] = layer_aux
-        x = x + h
+        x = constrain(x + h, "residual")
         if "ffn" not in p:
             continue
         if spec.ffn == "moe":
-            h, a = moe_mod.moe_forward(p["ffn"], x, cfg, mode, aux=aux)
+            h, a = moe_mod.moe_forward(p["ffn"], x, cfg, mode, aux=aux, constrain=constrain)
             if aux:
                 total = total + a
         else:
             h = swiglu_mlp(p["ffn"], x, mode, cfg.rms_eps)
-        x = x + h
+        x = constrain(x + h, "residual")
     return x, caches, total

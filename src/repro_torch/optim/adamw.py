@@ -2,12 +2,13 @@
 warmup-cosine schedule, as plain functions on the parameter dict.
 
 Reference: ``src/repro/optim/adamw.py`` — ``AdamWConfig``, ``OptState``,
-``init_opt_state``, ``lr_schedule``, ``global_norm`` and
-``adamw_update``, with the reference's arithmetic in its order (float32
-throughout; the bias corrections ``1 - b**step`` in f32).  The state
-mirrors the parameters (``m``, ``v`` per leaf, f32) plus an int32 step.
-``opt_state_specs`` goes with the sharding work (ROADMAP.md queue 1 item
-13).  ``torch.optim`` is not used.
+``init_opt_state``, ``opt_state_specs``, ``lr_schedule``,
+``global_norm`` and ``adamw_update``, with the reference's arithmetic in
+its order (float32 throughout; the bias corrections ``1 - b**step`` in
+f32).  The state mirrors the parameters (``m``, ``v`` per leaf, f32)
+plus an int32 step, so the sharding rules that place the parameters
+place the state identically (``opt_state_specs``, ``adamw.py:48-57``).
+``torch.optim`` is not used.
 
 ``adamw_update`` writes the new parameters, ``m`` and ``v`` into the
 given leaves, one leaf at a time, and returns the same trees (the
@@ -23,8 +24,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update", "lr_schedule",
-           "global_norm"]
+__all__ = ["AdamWConfig", "OptState", "init_opt_state", "opt_state_specs", "adamw_update",
+           "lr_schedule", "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +67,20 @@ def init_opt_state(params: dict) -> OptState:
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     step = torch.zeros((), dtype=torch.int32, device=next(_leaves(params)).device)
     return OptState(m=_map(zeros, params), v=_map(zeros, params), step=step)
+
+
+def opt_state_specs(param_specs_tree) -> OptState:
+    """Spec tree of the optimizer state: the parameters' shapes and axes
+    in f32 for ``m`` and ``v``, and a 0-dim int32 ``step``."""
+    from repro_torch.models.layers import Spec
+
+    def f32(s):
+        if isinstance(s, Spec):
+            return Spec(s.shape, s.axes, torch.float32, "zeros", s.scale)
+        return {k: f32(v) for k, v in s.items()}
+
+    return OptState(m=f32(param_specs_tree), v=f32(param_specs_tree),
+                    step=Spec((), (), torch.int32, "zeros"))
 
 
 def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -85,6 +85,21 @@ also gets the serving records of STUB_MODES on its attached weights:
 ``extra_embeds`` and one decode after the first
 (``{arch}/stub/{mode}/{logits,logits_text,c1/...,logits_decode,c2/...}``).
 
+With ``dp`` (tests/test_torch_grad_compress.py; ARCH gemma2_2b; the run
+gets ``--xla_force_host_platform_device_count=8``) it writes the
+reference's ``compressed_mean`` on an 8-device ``data`` mesh with
+tests/test_grad_compress.py's inputs (``gc/g``: ``default_rng(0)``,
+GC_SHAPE, one (64, 33) gradient a device), two rounds of error feedback
+(``gc/mean1``, ``gc/res1``, ``gc/mean2``, ``gc/res2``, stacked by
+device) and the exact ``pmean`` (``gc/exact``); then, on a 2-device
+mesh, ``make_dp_train_step`` of the smoke model at ``"precise"`` for
+every ``compress_bits`` of DP_BITS, one step each from the parameters of
+``init_params(PRNGKey(0))`` (``dp/param/...``) on DP_BATCH rows of
+``make_batch`` (``dp/batch/...``): the loss, the grad norm and the
+parameters and device 0's residuals after the step
+(``dp/{bits}/{loss,grad_norm,param/...,res/...}``, ``bits`` 8 or
+``none``).
+
 The ``spec`` and ``paged`` runs are shared by their two test modules:
 :func:`start_shared` starts, once per test session (across xdist
 workers too), every run that a collected module needs, and
@@ -158,6 +173,15 @@ MLA_MODES = ("exact", "precise")
 #: (B, S, heads, head_dim, d_state) of the ``ssd`` records
 SSD_SHAPE = (2, 32, 3, 5, 7)
 SSD_CHUNK = 8
+#: the ``dp`` records: per-device gradients of the compressed mean, the
+#: data-parallel step's batch (B, S), its devices, optimizer and bits
+GC_SHAPE = (8, 64, 33)
+DP_BATCH = (4, 32)
+DP_DEVICES = 2
+DP_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 10}
+DP_BITS = (8, None)
+#: extra XLA flags of a run by its mode
+RUN_XLA_FLAGS = {"dp": " --xla_force_host_platform_device_count=8"}
 #: the ``train`` records' modes per arch (the precise rung for all)
 TRAIN_MODES = {"deepseek_7b": ("precise", "fast"), "granite_moe_3b_a800m": ("precise", "fast"),
                "mamba2_1_3b": ("precise", "fast")}
@@ -184,6 +208,7 @@ SHARED_RUNS = {
     ("deepseek_7b", "qkv"): "test_torch_quantized_kv.py",
     ("gemma2_2b", "qkv"): "test_torch_quantized_kv.py",
     ("mixtral_8x22b", "qkv"): "test_torch_quantized_kv.py",
+    ("gemma2_2b", "dp"): "test_torch_grad_compress.py",
 }
 _STARTED = {}
 
@@ -480,8 +505,60 @@ def train(flat, arch):
         _save_tree(flat, f"{arch}/stub/{mode}/c2", c2)
 
 
+def dp(flat, arch):
+    """The ``dp`` records of the module docstring."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.compat import shard_map
+    from repro.optim.adamw import AdamWConfig, init_opt_state
+    from repro.optim.grad_compress import compressed_mean, make_dp_train_step
+
+    mesh8 = jax.make_mesh((GC_SHAPE[0],), ("data",))
+    g = np.random.default_rng(0).normal(0, 1, GC_SHAPE).astype(np.float32)
+
+    def worker(g_local, r_local):
+        mean, new_res = compressed_mean({"w": g_local}, {"w": r_local}, "data", GC_SHAPE[0],
+                                        bits=8)
+        return mean["w"], new_res["w"], jax.lax.pmean(g_local, "data")
+
+    f = jax.jit(shard_map(worker, mesh=mesh8, in_specs=(P("data"), P("data")),
+                          out_specs=(P("data"), P("data"), P("data")), check_vma=False))
+    gl = jnp.asarray(g.reshape(-1, GC_SHAPE[2]))
+    m1, r1, exact = f(gl, jnp.zeros_like(gl))
+    m2, r2, _ = f(gl, r1)
+    flat["gc/g"] = g
+    for k, v in (("mean1", m1), ("res1", r1), ("mean2", m2), ("res2", r2), ("exact", exact)):
+        flat[f"gc/{k}"] = np.asarray(v).reshape(GC_SHAPE)
+
+    cfg = smoke(arch)
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    _save_tree_paths(flat, "dp/param", params)
+    batch = make_batch(cfg, *DP_BATCH)
+    _save(flat, "dp/batch", batch)
+    mesh2 = jax.make_mesh((DP_DEVICES,), ("data",), devices=jax.devices()[:DP_DEVICES])
+    opt_cfg = AdamWConfig(**DP_OPT)
+    for bits in DP_BITS:
+        step = make_dp_train_step(cfg, opt_cfg, mesh2, compress_bits=bits, mode="precise")
+        res = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params)
+        p1, _, r1, metrics = step(params, init_opt_state(params), res, batch)
+        key = f"dp/{bits if bits is not None else 'none'}"
+        flat[f"{key}/loss"] = np.asarray(metrics["loss"])
+        flat[f"{key}/grad_norm"] = np.asarray(metrics["grad_norm"])
+        _save_tree_paths(flat, f"{key}/param", p1)
+        _save_tree_paths(flat, f"{key}/res", r1)
+
+
+def _save_tree_paths(flat, key, tree):
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        flat[f"{key}/" + "/".join(k.key for k in path)] = np.asarray(leaf)
+
+
 def main(out, arch="deepseek_7b", what=""):
     flat = {}
+    if what == "dp":
+        dp(flat, arch)
+        _write(out, flat)
+        return
     if what == "train":
         for a in arch.split(","):
             train(flat, a)
@@ -563,6 +640,7 @@ def start_shared(request, tmp_path_factory):
     collected = {item.path.name for item in request.session.items}
     env = dict(os.environ, XLA_FLAGS="--xla_allow_excess_precision=false", JAX_PLATFORMS="cpu")
     for (arch, mode), modules in SHARED_RUNS.items():
+        run_env = dict(env, XLA_FLAGS=env["XLA_FLAGS"] + RUN_XLA_FLAGS.get(mode, ""))
         out = out_dir / f"{arch}-{mode}.npz"
         if not collected & ({modules} if isinstance(modules, str) else set(modules)):
             continue
@@ -571,7 +649,7 @@ def start_shared(request, tmp_path_factory):
         except FileExistsError:
             continue
         _STARTED[out] = subprocess.Popen([sys.executable, os.path.abspath(__file__), str(out),
-                                          arch, mode], env=env)
+                                          arch, mode], env=run_env)
     return out_dir
 
 

@@ -19,7 +19,13 @@ from repro_torch.configs import ARCH_IDS, PORTED, get_config, smoke  # noqa: E40
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_torch_serving.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_torch_serving.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
+#: the sharded slice's modules (ROADMAP item 13)
+SHARDED_MODULES = ("repro_torch.distributed.sharding", "repro_torch.optim.grad_compress",
+                   "repro_torch.launch.mesh", "repro_torch.launch.steps",
+                   "repro_torch.launch.cost_analysis", "repro_torch.launch.dryrun",
+                   "repro_torch.launch.train")
 
 
 def _imported_modules(path: Path):
@@ -131,3 +137,33 @@ def test_chip_smoke_refuses_outside_the_repository(tmp_path):
     res = _run_chip_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_sharded_modules_import_no_process_group_state():
+    """Importing the sharded slice's modules starts no process group and
+    leaves torch's internal fake process group unimported (the dry-run
+    loads it inside ``run_cell``)."""
+    code = ("import sys, importlib\n"
+            f"for m in {SHARDED_MODULES!r}: importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "print(dist.is_initialized(), "
+            "'torch.testing._internal.distributed.fake_pg' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The module lists differ only by the port's own additions; the
+    kernel packages have their own layout (a kernel's plain version and
+    its ops live beside its wrapper), so there each package must exist."""
+    ref = {p.relative_to(ROOT / "src" / "repro").as_posix()
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+            for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    renamed = {"launch/hlo_analysis.py": "launch/cost_analysis.py"}
+    missing = {m for m in ref - port if renamed.get(m) not in port
+               and not (m.startswith("kernels/") and os.path.dirname(m) in
+                        {os.path.dirname(q) for q in port})}
+    assert not missing, sorted(missing)
