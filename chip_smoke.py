@@ -8,6 +8,8 @@ Usage (from the repository root, on a machine with the card)::
     python3 chip_smoke.py --only engine    # phases 1-3 (3b included)
     python3 chip_smoke.py --only kernels --root OTHER_CHECKOUT
                                            # another tree's kernels, same cases
+    python3 chip_smoke.py --only moe [--root OTHER_CHECKOUT]
+                                           # the MoE models' serving phases only
 
 Phases, each printing JSON lines:
 
@@ -54,7 +56,13 @@ Phases, each printing JSON lines:
    (out, and K2's gate and sigmoid parts) at granite-moe-3b-a800m's and
    mixtral-8x22b's prefill and decode shapes (GROUPED_K2 / GROUPED_K1)
    and at tile edges with every K1 epilogue, timed beside their bounds
-   and a per-expert loop of ``torch._int_mm`` (library);
+   and a per-expert loop of ``torch._int_mm`` (library); from slice 13
+   also at the 4500-token prefills' shapes, on routed rows (the port's
+   own routing: granite 1- and 4-lane decode and 480-token prefill,
+   mixtral's and jamba's 4-lane decode and 480-token prefill; each
+   beside its routed bound, the live experts' weights and live rows), on
+   the ``rows`` edges of both tile heights and right after NaN-filled
+   blocks of the outputs' sizes were freed (an unwritten dead row fails);
 3. engine: ``MathEngine`` calls atan2 div sqrt exp log tanh sigmoid sin
    cos on CUDA tensors of 2**24 elements at ``q16_16``, at ``f32`` and
    under ``PrecisionPolicy(default="q16_16", per_op={"atan2": "q8_24",
@@ -219,6 +227,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import os
@@ -270,10 +279,11 @@ TC_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA")
 #: products and their operands)
 SASS_OPS = {**{o: rf"\b{o}\b" for o in TC_OPS}, "FFMA": r"\bFFMA",
             "LDS.128": r"\bLDS[.\w]*\.128\b"}
-#: library -> (kernel function, the instructions it must hold)
-TC_KERNELS = {"flashattn": ("flash_fwd_tc", ("HMMA", "HGMMA")),
-              "qmatmul": ("gemm_tc", ("IMMA", "IGMMA")),
-              "fused_mlp": ("gemm_tc", ("IMMA", "IGMMA"))}
+#: library -> (kernel functions, the instructions each must hold): K1's
+#: and K2's prefill tiles and the grouped entries' (G1, G2) tiles
+TC_KERNELS = {"flashattn": (("flash_fwd_tc",), ("HMMA", "HGMMA")),
+              "qmatmul": (("gemm_tc", "grouped_tc"), ("IMMA", "IGMMA")),
+              "fused_mlp": (("gemm_tc", "grouped_tc"), ("IMMA", "IGMMA"))}
 #: the exact rung's kernel: it must hold no tensor-core instruction (no TF32)
 EXACT_KERNEL = ("flashattn", "flash_fwd_f32")
 
@@ -303,14 +313,16 @@ def sass_phase(compat) -> dict:
     tensor-core kernel holds none, or the exact rung's kernel any."""
     cuobjdump = os.path.join(os.path.dirname(compat._nvcc()), "cuobjdump")
     out, libs = {}, {}
-    for lib, (kernel, ops) in TC_KERNELS.items():
+    for lib, (kernels, ops) in TC_KERNELS.items():
         libs[lib] = counts = sass_counts(str(compat._lib_path(lib)), cuobjdump)
-        mine = {f: c for f, c in counts.items() if kernel in f}
-        require(bool(mine), f"lib{lib}.so holds no {kernel} kernel")
-        for f, c in mine.items():
-            require(sum(c[o] for o in ops) > 0, f"{f} in lib{lib}.so runs no {'/'.join(ops)}")
-        out[lib] = {"kernel": kernel, "functions": len(mine),
-                    **{o: sum(c[o] for c in mine.values()) for o in TC_OPS}}
+        out[lib] = {}
+        for kernel in kernels:
+            mine = {f: c for f, c in counts.items() if kernel in f}
+            require(bool(mine), f"lib{lib}.so holds no {kernel} kernel")
+            for f, c in mine.items():
+                require(sum(c[o] for o in ops) > 0, f"{f} in lib{lib}.so runs no {'/'.join(ops)}")
+            out[lib][kernel] = {"functions": len(mine),
+                                **{o: sum(c[o] for c in mine.values()) for o in TC_OPS}}
     lib, kernel = EXACT_KERNEL
     exact = {f: c for f, c in libs[lib].items() if kernel in f}
     require(bool(exact), f"lib{lib}.so holds no {kernel} kernel")
@@ -1082,74 +1094,245 @@ SLICE10_K1 = {(m, k, n): what for m in (4, 480) for (k, n, what) in (
 #: ragged K, N (the 4-byte copies)
 GROUPED_EDGES = tuple((3, m, k, n) for m in (1, 8, 9, 65, 129) for (k, n) in ((1536, 512),
                                                                             (100, 52)))
+#: the 4500-token prefills' grouped shapes (slice 13): jamba (C = 704) and
+#: mixtral (C = 1408), bound by int8 operations
+GROUPED_LONG_K2 = ((16, 704, 4096, 14336), (8, 1408, 6144, 16384))
+GROUPED_LONG_K1 = ((16, 704, 14336, 4096), (8, 1408, 16384, 6144))
+#: routed cases (slice 13): (model, E, top-k, K, N of G2, lanes, tokens a
+#: lane); the rows are the port's own routing, ``top_k_stable`` over a
+#: seeded softmax, counts clipped at the capacity C
+ROUTED = (("granite", 40, 8, 1536, 512, 1, 1), ("granite", 40, 8, 1536, 512, 4, 1),
+          ("granite", 40, 8, 1536, 512, 1, 480),
+          ("mixtral", 8, 2, 6144, 16384, 4, 1), ("mixtral", 8, 2, 6144, 16384, 1, 480),
+          ("jamba", 16, 2, 4096, 14336, 4, 1), ("jamba", 16, 2, 4096, 14336, 1, 480))
+#: the rows contract's edges: (C, rows (G, L)) on the decode tiles (C <=
+#: 16: 32 rows) and the prefill tiles (64 rows) -- an all-dead group, all
+#: live (a count equal to C), live counts on both sides of a tile edge
+#: (31 / 32 / 33, 63 / 64 / 65, 127 / 129) and of a lane block's edge,
+#: and counts past the contract's range (negative, above C: clipped)
+ROWS_EDGES = ((8, ((0,) * 8, (8,) * 8, (8, 8, 8, 8, 1, 0, 0, 0), (8, 8, 8, 7, 0, 0, 0, 0),
+                   (8, 8, 8, 8, 0, 0, 0, 0), (3, 0, 8, 1, -2, 11, 2, 0))),
+              (72, ((0, 0), (72, 72), (64, 1), (63, 0), (30, 34), (72, 57), (-1, 80))))
+
+
+def _capacity(tokens: int, experts: int, k: int) -> int:
+    """models.moe._capacity at the configs' capacity factor 1.25."""
+    c = int(tokens * k / experts * 1.25)
+    return max(8, -(-c // 8) * 8)
+
+
+def routed_rows(experts: int, k: int, lanes: int, tokens: int, gen):
+    """(E, lanes) int32 live rows and C: each lane's tokens routed by the
+    port's ``top_k_stable`` over a seeded softmax, counts clipped at C."""
+    import torch
+
+    from repro_torch.models.moe import top_k_stable
+
+    c = _capacity(tokens, experts, k)
+    logits = torch.randn(lanes, tokens, experts, generator=gen)
+    _, idx = top_k_stable(torch.softmax(logits, dim=-1), k)
+    counts = torch.nn.functional.one_hot(idx.reshape(lanes, -1), experts).sum(1)
+    return counts.clamp(max=c).t().to(torch.int32).contiguous(), c
+
+
+def _takes_rows(fn) -> bool:
+    """Whether a grouped entry has the rows contract (a --root checkout
+    may predate it)."""
+    import inspect
+
+    return "rows" in inspect.signature(fn).parameters
+
+
+def _poisoned(*shapes) -> None:
+    """Allocate NaN-filled tensors of ``shapes`` and free them, so that the
+    next allocations of those sizes reuse the blocks: a kernel that leaves
+    an output element unwritten then fails a bit-exact comparison."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    held = [torch.full(s, float("nan"), device=dev) for s in shapes]
+    torch.cuda.synchronize()
+    del held
 
 
 def check_grouped(records, keep, i8, i32):
     """The grouped K1 / K2 entries against their plain versions (bit for
-    bit: out, and K2's gate and sigmoid parts) at GROUPED_K2 / GROUPED_K1
-    and GROUPED_EDGES, timed beside their bounds; ``library_ms`` is a
-    per-expert loop of ``torch._int_mm`` (gate and up for K2) where M > 16."""
+    bit: out, and K2's gate and sigmoid parts) at GROUPED_K2 / GROUPED_K1,
+    GROUPED_EDGES and the 4500-token shapes with every row live, then on
+    ROUTED rows (beside the all-live bound, the routed bound: the live
+    experts' weights, the live rows and every output row), on the
+    ROWS_EDGES and right after NaN-filled blocks of the outputs' sizes
+    were freed; timed beside their bounds; ``library_ms`` is a per-expert
+    loop of ``torch._int_mm`` (gate and up for K2) where M > 16 and every
+    row is live."""
     import torch
 
     from repro_torch.kernels.fused_mlp import fused_swiglu_grouped, fused_swiglu_plain
     from repro_torch.kernels.qmatmul import qmatmul_grouped, qmatmul_plain
 
-    for (g, m, k, f) in GROUPED_K2 + GROUPED_EDGES:
-        x, wg, wu = i8(g, m, k), i8(g, k, f), i8(g, k, f)
-        ea, eg, eu = i32(-8, -4, 1), i32(-12, -6, g, f), i32(-12, -6, g, f)
-        got = fused_swiglu_grouped(x, wg, wu, ea, eg, eu, return_parts=True)
-        want = fused_swiglu_plain(x, wg, wu, ea, eg, eu, return_parts=True)
+    ragged = _takes_rows(fused_swiglu_grouped) and _takes_rows(qmatmul_grouped)
+    gen = torch.Generator().manual_seed(23)
+    dev = torch.device(DEVICE)
+
+    def k2_inputs(g, m, k, f, rows=None):
+        x = i8(g, m, k)
+        if rows is not None and not ragged:
+            x = _zero_dead(x, rows)  # the parent's kernel reads every row
+        return (x, i8(g, k, f), i8(g, k, f), i32(-8, -4, 1), i32(-12, -6, g, f),
+                i32(-12, -6, g, f))
+
+    def k2_case(case, args, rows=None, routed=None, timed=True):
+        kw = {"rows": rows} if ragged and rows is not None else {}
+        got = fused_swiglu_grouped(*args, return_parts=True, **kw)
+        want = fused_swiglu_plain(*args, return_parts=True, **kw)
         torch.cuda.synchronize()
         exact = [torch.equal(a, b) for a, b in zip(got, want)]
         err = (got[0].double() - want[0].double()).abs().max().item()
-        case = f"E={g} M={m} K={k} F={f}"
         require(all(exact), f"fused_swiglu_grouped {case}: out / gate / sigmoid bit-exact "
                 f"{exact} against the plain version (max err {err})")
-        if (g, m, k, f) in GROUPED_EDGES:
-            continue
+        if not timed:
+            return None
+        g, m, k = args[0].shape
+        f = args[1].shape[2]
+        slow = g * m * k * f > 2 ** 36  # plain calls of 0.1 s and more are timed once
         rec = {"case": case, "bit_exact": True, "max_abs_err": err,
-               "ms": time_ms(lambda: fused_swiglu_grouped(x, wg, wu, ea, eg, eu)),
-               "plain_ms": time_ms(lambda: fused_swiglu_plain(x, wg, wu, ea, eg, eu), iters=3)}
+               "ms": time_ms(lambda: fused_swiglu_grouped(*args, **kw)),
+               "plain_ms": time_ms(lambda: fused_swiglu_plain(*args, **kw), iters=1 if slow else 3,
+                                   warmup=1 if slow else 3)}
+        x, wg, wu = args[:3]
         rec["library_ms"] = (time_ms(lambda: [(torch._int_mm(x[e], wg[e]),
                                                torch._int_mm(x[e], wu[e])) for e in range(g)])
-                             if m > 16 else None)
+                             if m > 16 and rows is None else None)
         rec["library"] = "per-expert torch._int_mm, gate and up (no epilogue)"
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             g * (m * k + 2 * k * f + 8 * f + 4 * m * f) + 4, 4.0 * g * m * k * f, "int8")
+        if routed is not None:
+            live_e, live_r = routed
+            rec["live_experts"], rec["live_rows"] = live_e, live_r
+            rec["all_live_bound_ms"] = rec["bound_ms"]
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                live_e * (2 * k * f + 8 * f) + live_r * k + 4 * g * m * f + 4,
+                4.0 * live_r * k * f, "int8")
         emit({"phase": "kernels", "kernel": "fused_swiglu_grouped", **rec})
         keep("fused_swiglu_grouped", rec)
-    emit({"phase": "kernels", "kernel": "fused_swiglu_grouped", "case": "tile edges",
-          "shapes": [f"E={g} M={m} K={k} F={f}" for g, m, k, f in GROUPED_EDGES],
-          "bit_exact": True})
-    del x, wg, wu, got, want
+        return rec
 
-    for (g, m, k, n) in GROUPED_K1 + GROUPED_EDGES:
-        a, b = i8(g, m, k), i8(g, k, n)
-        ea = i32(-12, -4, 1)
-        epis = ("float",) if (g, m, k, n) in GROUPED_K1 else ("float", "q16", "int32")
-        for epi in epis:
-            eb = i32(-30, 12, g, n) if epi == "q16" else i32(-12, -4, g, n)
-            got, want = qmatmul_grouped(a, b, ea, eb, epi), qmatmul_plain(a, b, ea, eb, epi)
-            torch.cuda.synchronize()
-            err = (got.double() - want.double()).abs().max().item()
-            case = f"E={g} M={m} K={k} N={n} {epi}"
-            require(torch.equal(got, want), f"qmatmul_grouped {case} differs from its plain "
-                    f"version (max err {err})")
-        if (g, m, k, n) in GROUPED_EDGES:
-            continue
-        rec = {"case": case, "bit_exact": True, "max_abs_err": err,
-               "ms": time_ms(lambda: qmatmul_grouped(a, b, ea, eb)),
-               "plain_ms": time_ms(lambda: qmatmul_plain(a, b, ea, eb), iters=3)}
+    def k1_inputs(g, m, k, n, rows=None, epi="float"):
+        a = i8(g, m, k)
+        if rows is not None and not ragged:
+            a = _zero_dead(a, rows)
+        eb = i32(-30, 12, g, n) if epi == "q16" else i32(-12, -4, g, n)
+        return a, i8(g, k, n), i32(-12, -4, 1), eb
+
+    def k1_case(case, args, epi, rows=None, routed=None, timed=True):
+        kw = {"rows": rows} if ragged and rows is not None else {}
+        got = qmatmul_grouped(*args, epi, **kw)
+        want = qmatmul_plain(*args, epi, **kw)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        require(torch.equal(got, want), f"qmatmul_grouped {case} {epi} differs from its plain "
+                f"version (max err {err})")
+        if not timed:
+            return None
+        a, b = args[:2]
+        g, m, k = a.shape
+        n = b.shape[2]
+        rec = {"case": f"{case} {epi}", "bit_exact": True, "max_abs_err": err,
+               "ms": time_ms(lambda: qmatmul_grouped(*args, epi, **kw)),
+               "plain_ms": time_ms(lambda: qmatmul_plain(*args, epi, **kw), iters=3)}
         rec["library_ms"] = (time_ms(lambda: [torch._int_mm(a[e], b[e]) for e in range(g)])
-                             if m > 16 else None)
+                             if m > 16 and rows is None else None)
         rec["library"] = "per-expert torch._int_mm (no epilogue)"
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             g * (m * k + k * n + 4 * n + 4 * m * n) + 4, 2.0 * g * m * n * k, "int8")
+        if routed is not None:
+            live_e, live_r = routed
+            rec["live_experts"], rec["live_rows"] = live_e, live_r
+            rec["all_live_bound_ms"] = rec["bound_ms"]
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                live_e * (k * n + 4 * n) + live_r * k + 4 * g * m * n + 4,
+                2.0 * live_r * k * n, "int8")
         emit({"phase": "kernels", "kernel": "qmatmul_grouped", **rec})
         keep("qmatmul_grouped", rec)
+        return rec
+
+    # every row live: the MoE and SSM slices' shapes, the tile edges, the
+    # 4500-token prefills
+    for (g, m, k, f) in GROUPED_K2 + GROUPED_EDGES + GROUPED_LONG_K2:
+        k2_case(f"E={g} M={m} K={k} F={f}", k2_inputs(g, m, k, f),
+                timed=(g, m, k, f) not in GROUPED_EDGES)
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "fused_swiglu_grouped", "case": "tile edges",
+          "shapes": [f"E={g} M={m} K={k} F={f}" for g, m, k, f in GROUPED_EDGES],
+          "bit_exact": True})
+    for (g, m, k, n) in GROUPED_K1 + GROUPED_EDGES + GROUPED_LONG_K1:
+        edge = (g, m, k, n) in GROUPED_EDGES
+        for epi in ("float", "q16", "int32") if edge else ("float",):
+            k1_case(f"E={g} M={m} K={k} N={n}", k1_inputs(g, m, k, n, epi=epi), epi,
+                    timed=not edge)
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "qmatmul_grouped", "case": "tile edges, every epilogue",
           "shapes": [f"E={g} M={m} K={k} N={n}" for g, m, k, n in GROUPED_EDGES],
           "bit_exact": True})
+
+    # routed: the port's routing; the parent's kernels (--root) run every
+    # row of inputs whose dead rows are zero, as the model's are
+    for model, e, top_k, k, f, lanes, tokens in ROUTED:
+        rows, c = routed_rows(e, top_k, lanes, tokens, gen)
+        rows = rows.to(dev)
+        live = (int((rows.sum(1) > 0).sum()), int(rows.sum()))
+        what = (f"{model} {'decode' if tokens == 1 else f'{tokens}-token prefill'}, "
+                f"{lanes} lane{'s' if lanes > 1 else ''}, routed")
+        m = lanes * c
+        k2_case(f"E={e} M={m} K={k} F={f} ({what})", k2_inputs(e, m, k, f, rows), rows, live)
+        k1_case(f"E={e} M={m} K={f} N={k} ({what})", k1_inputs(e, m, f, k, rows), "float",
+                rows, live)
+        torch.cuda.empty_cache()
+    if not ragged:
+        emit({"phase": "kernels", "grouped_rows": "not in this tree: routed cases ran every "
+                                                  "row, the rows edges were skipped"})
+        return
+
+    # the rows contract's edges, on both tile heights, every K1 epilogue;
+    # dead rows hold random bytes, which the kernels must read as zero
+    n_cases = 0
+    for c, table in ROWS_EDGES:
+        rows = torch.tensor(table, dtype=torch.int32, device=dev)
+        g, lanes = rows.shape
+        for (k, n) in ((1536, 512), (100, 52)):
+            k2_case(f"E={g} M={lanes * c} K={k} F={n} rows {table}",
+                    k2_inputs(g, lanes * c, k, n), rows, timed=False)
+            for epi in ("float", "q16", "int32"):
+                k1_case(f"E={g} M={lanes * c} K={n} N={k} rows {table}",
+                        k1_inputs(g, lanes * c, n, k, epi=epi), epi, rows, timed=False)
+            n_cases += 4
+    emit({"phase": "kernels", "kernel": "grouped", "case": "rows edges", "cases": n_cases,
+          "rows": [t for _, t in ROWS_EDGES], "bit_exact": True})
+
+    # an unwritten dead row must show: granite's routed 4-lane decode right
+    # after NaN-filled blocks of each output's size were freed
+    rows, c = routed_rows(40, 8, 4, 1, gen)
+    rows = rows.to(dev)
+    args = k2_inputs(40, 4 * c, 1536, 512)
+    _poisoned(*[(40, 4 * c, 512)] * 3)
+    k2_case("granite decode, 4 lanes, routed, after NaN blocks", args, rows, timed=False)
+    args = k1_inputs(40, 4 * c, 512, 1536)
+    _poisoned((40, 4 * c, 1536))
+    k1_case("granite decode, 4 lanes, routed, after a NaN block", args, "float", rows,
+            timed=False)
+    emit({"phase": "kernels", "kernel": "grouped", "case": "dead rows after NaN-filled blocks",
+          "live_rows": int(rows.sum()), "rows": 4 * c * 40, "bit_exact": True})
+
+
+def _zero_dead(x, rows):
+    """``x`` (G, M, K) with the rows ``rows`` marks dead zeroed (the
+    model's padding rows), for a kernel without the rows contract."""
+    import torch
+
+    g, m, _ = x.shape
+    j = torch.arange(m // rows.shape[1], device=x.device)
+    live = (j < rows[:, :, None]).reshape(g, m)
+    return torch.where(live[..., None], x, torch.zeros_like(x))
 
 
 def check_float_entries(kc, xf, yf, keep):
@@ -1734,6 +1917,8 @@ def _serve_model(name: str, seed: int, max_len: int, prompt_lens, levels, ttft_l
         "n_slots": 4, "max_len": max_len, "requests": len(reqs),
         "prompt_lens": list(prompt_lens), "max_new": MAX_NEW, "levels": list(levels),
         "generated_tokens": n_tokens, "serve_wall_s": wall, "tokens_per_s": n_tokens / wall,
+        "tokens_sha": hashlib.sha256(json.dumps([fins[r.rid].tokens for r in reqs])
+                                     .encode()).hexdigest()[:16],
         "ttft_ms": ttft, "setup_s": setup_s, "launches": launches,
         "launches_per_prefill": per_prefill, "launches_per_decode_tick": per_tick,
         "decode_ticks": ticks, "level_passes": passes, "q16_16_passes": q16_passes,
@@ -3864,8 +4049,10 @@ REPLACES = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "engine"), default=None,
-                    help="stop after the kernel phase, or after the engine phase")
+    ap.add_argument("--only", choices=("kernels", "engine", "moe"), default=None,
+                    help="stop after the kernel phase, or after the engine phase; moe: the "
+                         "build, then only the MoE models' serving phases (granite, mixtral, "
+                         "jamba), for end-to-end A/B runs with --root")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--root", default=None,
                     help="build and check the port of another checkout with this script's "
@@ -3920,14 +4107,27 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(args.seed)
     torch.cuda.reset_peak_memory_stats()
-    records = check_kernels(gen, strict=root == ROOT)
-    if _has_train():
-        check_flash_grad(gen)
-    else:
-        require(root != ROOT, "K4's autograd Function (the training slice) is missing")
-    emit({"phase": "kernels", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "elapsed_s": time.perf_counter() - t_start})
+    records = {}
+    if args.only != "moe":
+        records = check_kernels(gen, strict=root == ROOT)
+        if _has_train():
+            check_flash_grad(gen)
+        else:
+            require(root != ROOT, "K4's autograd Function (the training slice) is missing")
+        emit({"phase": "kernels", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "elapsed_s": time.perf_counter() - t_start})
     by_path, by_entry = {}, {}
+    if args.only == "moe":
+        for model, phase in (("granite_moe_3b_a800m", granite_phase),
+                             ("mixtral_8x22b", mixtral_phase), ("jamba_v01_52b", jamba_phase)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase(args.seed, strict=root == ROOT)
+            emit({"phase": f"{model} done", "elapsed_s": time.perf_counter() - t_start})
+        print(nvidia_smi(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if args.only != "kernels":
         gc.collect()
         torch.cuda.empty_cache()

@@ -3,7 +3,7 @@
 
 Usage (repository root, on a machine with an NVIDIA card)::
 
-    python3 profile_torch_serving.py [--model MODEL] [--out FILE]
+    python3 profile_torch_serving.py [--model MODEL] [--out FILE] [--windows prefill,decode]
 
 Builds the full model (deepseek-7b by default, gemma2-2b,
 granite-moe-3b-a800m, mamba2-1.3b or minicpm3-4b; jamba-v0.1-52b at full
@@ -21,6 +21,9 @@ windows of real ``serve()`` calls:
 * ``mixed``: the workload of ``chip_smoke.py`` (8 requests, prompt
   lengths 17-480, 16 new tokens each, half per rung; gemma2-2b adds one
   4500-token prompt per rung).
+
+``--windows`` picks some of ``prefill``, ``decode`` and ``mixed`` (all by
+default; the mixed window takes the longest to trace).
 
 The warm-up serves one prompt of every timed length at both rungs, so
 no timed window pays a kernel's first launch at its shapes (the cuBLAS
@@ -70,7 +73,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="profiler tables (default: build/profile-<model>.txt)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--windows", default="prefill,decode,mixed",
+                    help="comma-separated windows to time: prefill, decode, mixed")
     args = ap.parse_args(argv)
+    windows = set(args.windows.split(","))
+    if not windows <= {"prefill", "decode", "mixed"}:
+        ap.error(f"--windows: unknown {sorted(windows - {'prefill', 'decode', 'mixed'})}")
 
     import numpy as np
     import torch
@@ -159,31 +167,33 @@ def main(argv=None) -> int:
                       + events.table(sort_by="self_cuda_time_total", row_limit=30))
         return rec
 
-    for n in (480,) + long_prompts:
+    for n in (480,) + long_prompts if "prefill" in windows else ():
         for lv in ("q16_16", "f32"):
             window(f"prefill {n} tokens at {lv}", [(prompt(n), 1, lv)])
 
-    four = [(prompt(64), lv) for lv in ("q16_16", "f32", "q16_16", "f32")]
-    admit = window("admit4: four 64-token prefills (2 q16_16 + 2 f32)",
-                   [(p, 1, lv) for p, lv in four])
-    full = window(f"admit4+decode: the same four, {TICKS} decode ticks",
-                  [(p, TICKS + 1, lv) for p, lv in four])
-    wall = full["wall_ms"] - admit["wall_ms"]
-    busy = full["device_busy_ms"] - admit["device_busy_ms"]
-    print(json.dumps({
-        "window": f"decode: {TICKS} mixed ticks, 4 lanes (admit4+decode - admit4)",
-        "ticks": full["decode_ticks"], "wall_ms": wall, "device_busy_ms": busy,
-        "device_idle_share": 1.0 - busy / wall,
-        "wall_ms_per_tick": wall / TICKS, "device_busy_ms_per_tick": busy / TICKS,
-        "host_ms_per_tick": {k: full["host_ms"][k] / TICKS for k in PHASES},
-        "device_ops_per_tick": (full["device_ops"] - admit["device_ops"]) / TICKS,
-        "nvidia_smi": smi,
-    }), flush=True)
+    if "decode" in windows:
+        four = [(prompt(64), lv) for lv in ("q16_16", "f32", "q16_16", "f32")]
+        admit = window("admit4: four 64-token prefills (2 q16_16 + 2 f32)",
+                       [(p, 1, lv) for p, lv in four])
+        full = window(f"admit4+decode: the same four, {TICKS} decode ticks",
+                      [(p, TICKS + 1, lv) for p, lv in four])
+        wall = full["wall_ms"] - admit["wall_ms"]
+        busy = full["device_busy_ms"] - admit["device_busy_ms"]
+        print(json.dumps({
+            "window": f"decode: {TICKS} mixed ticks, 4 lanes (admit4+decode - admit4)",
+            "ticks": full["decode_ticks"], "wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "wall_ms_per_tick": wall / TICKS, "device_busy_ms_per_tick": busy / TICKS,
+            "host_ms_per_tick": {k: full["host_ms"][k] / TICKS for k in PHASES},
+            "device_ops_per_tick": (full["device_ops"] - admit["device_ops"]) / TICKS,
+            "nvidia_smi": smi,
+        }), flush=True)
 
-    lens = PROMPT_LENS + tuple(n for n in long_prompts for _ in range(2))
-    levels = LEVELS + tuple(lv for _ in long_prompts for lv in ("q16_16", "f32"))
-    mixed = [(prompt(n), MAX_NEW, lv) for n, lv in zip(lens, levels)]
-    window(f"mixed: chip_smoke.py's {len(mixed)}-request workload", mixed)
+    if "mixed" in windows:
+        lens = PROMPT_LENS + tuple(n for n in long_prompts for _ in range(2))
+        levels = LEVELS + tuple(lv for _ in long_prompts for lv in ("q16_16", "f32"))
+        mixed = [(prompt(n), MAX_NEW, lv) for n, lv in zip(lens, levels)]
+        window(f"mixed: chip_smoke.py's {len(mixed)}-request workload", mixed)
 
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:

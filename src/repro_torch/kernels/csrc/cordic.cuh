@@ -410,4 +410,53 @@ __host__ __device__ constexpr int32_t atan_at(int frac, int i) {
 // round(pi * 2**f) for the compiled atan tables' formats
 __host__ __device__ constexpr int32_t pi_at(int frac) { return frac == 16 ? 205887 : 52707179; }
 
+// ---------------------------------------------------------------------------
+// K2's grouped epilogue: sigmoid_q16 on ILP gates, one schedule for all
+// ---------------------------------------------------------------------------
+
+// tanh's far path is the exp tail while exp(-2|t|) is not flushed to 0;
+// beyond, (U16 - 0) / (U16 + 0) clamps to U16
+constexpr int32_t TANH_EXP_END = (-EXP_FLUSH_LO_Q16 + 1) / 2;  // 386122
+
+// sigmoid_q16 (the default schedule) in place, bit for bit, with ONE
+// rotation and ONE division for every gate: tanh's near path (|t| <= 1,
+// sinh / cosh) and far path (the exp tail) differ only in the rotation's
+// angle and the quotient's operands, so both are selected per element
+// instead of branched on, and a warp whose lanes mix the paths runs 20
+// rotation and 17 division steps, not twice that.  The lean steps above
+// (K5's) carry ILP gates at once.
+template <int ILP>
+__device__ __forceinline__ void sigmoid_q16_n(int32_t (&w)[ILP]) {
+  int32_t t[ILP], at[ILP], k[ILP], x[ILP], y[ILP], z[ILP];
+#pragma unroll
+  for (int e = 0; e < ILP; ++e) {
+    t[e] = clamp_raw(w[e]) >> 1;  // tanh's argument
+    at[e] = t[e] < 0 ? -t[e] : t[e];
+    // far: exp(te), te = -2|t| kept inside exp's live range
+    const int32_t te = -(imin(at[e], TANH_EXP_END - 1) << 1);
+    k[e] = wadd(q_mul16(te, INV_LN2_Q16), 1 << 15) >> 16;  // in [-17, 0]
+    const int32_t zf = shl(wsub(te, k[e] * LN2_Q16), HFRAC - 16);
+    z[e] = at[e] <= U16 ? at[e] << (HFRAC - 16) : zf;
+    x[e] = K_H_INV_Q29;
+    y[e] = 0;
+  }
+  hyper_rotation_n<HYPER_STAGES>(x, y, z);
+  int32_t num[ILP], den[ILP], mag[ILP];
+#pragma unroll
+  for (int e = 0; e < ILP; ++e) {
+    // exp's reconstruction: the shift 13 - k lies in [13, 30]
+    const int32_t c = (HFRAC - 16) - k[e];
+    const int32_t ex = wadd(wadd(x[e], y[e]), 1 << (c - 1)) >> c;
+    const bool near = at[e] <= U16;
+    num[e] = near ? y[e] >> (HFRAC - 16) : U16 - ex;
+    den[e] = near ? imax(x[e] >> (HFRAC - 16), 1) : U16 + ex;
+  }
+  linear_div_n(num, den, mag);
+#pragma unroll
+  for (int e = 0; e < ILP; ++e) {
+    const int32_t m = at[e] >= TANH_EXP_END ? U16 : imin(mag[e], U16);
+    w[e] = wadd(t[e] < 0 ? -m : m, U16 + 1) >> 1;
+  }
+}
+
 }  // namespace rq

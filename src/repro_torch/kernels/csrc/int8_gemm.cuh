@@ -36,13 +36,10 @@
 //     4x4-byte transposes of B).
 // NB (1 or 2) is the number of B matrices streamed against one A tile.
 //
-// Grouped launches (the MoE experts' products, which the reference
-// computes as XLA batched dots: src/repro/models/moe.py::
-// _fused_expert_mlp): G independent problems of the same shape laid out
-// back to back, A (G, M, K) and each B (G, K, N), with the group as
-// blockIdx.z.  A block offsets its operands by its group and passes the
-// group to the epilogue, which indexes per-group exponents and output
-// rows; one launch covers every group.  G = 1 is the plain product.
+// The launchers take a group count G (problems of one shape back to
+// back, the group on blockIdx.z); K1 and K2 launch G = 1.  The MoE
+// experts' grouped products (G1, G2) run on grouped_gemm.cuh, which
+// reuses this file's copies, swizzles, ldmatrix and mma steps.
 #pragma once
 
 #include "common.cuh"

@@ -34,8 +34,13 @@ FAST on cached int8 expert weights (``w_gate_q`` present) is
 :func:`_fused_expert_mlp`: two grouped launches a layer, K2's grouped
 entry for the gate / up products with the CORDIC ``swiglu_body_q16``
 epilogue and K1's grouped entry for the down projection, the expert as
-the launch's group.  The per-tensor quantizations of the gathered tokens
-and of the hidden activation stay plain torch, as the dense path's do.
+the launch's group.  Both take the dispatch's live rows, ``counts``
+clipped at C as (E, B) int32: the kernels read them on the device and
+skip the padding rows and the experts no token picked (their rows are
+zeros, so their outputs are the zero accumulator's, which the kernels
+write without computing them: the same bits).  The per-tensor
+quantizations of the gathered tokens and of the hidden activation stay
+plain torch, as the dense path's do.
 """
 
 from __future__ import annotations
@@ -86,9 +91,10 @@ def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _fused_expert_mlp(params: dict, xe: torch.Tensor) -> torch.Tensor:
+def _fused_expert_mlp(params: dict, xe: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Fused FAST expert SwiGLU on cached int8 weights (the serving
-    path): ``xe`` (B, E, C, d) -> (B, E, C, d) f32.
+    path): ``xe`` (B, E, C, d) -> (B, E, C, d) f32; ``rows`` (E, B) int32:
+    the live rows of each expert's C in each batch row.
 
     The gathered tokens are quantized ONCE per layer (per tensor), laid
     out as a contiguous (E, B*C, d), and run through K2's grouped entry
@@ -105,9 +111,10 @@ def _fused_expert_mlp(params: dict, xe: torch.Tensor) -> torch.Tensor:
 
     xq = quantize_pow2(xe, bits=8, axis=None)
     x_g = xq.q.transpose(0, 1).reshape(E, B * C, d).contiguous()
-    act = fused_swiglu_grouped(x_g, gq, uq, xq.exp, ge.reshape(E, f), ue.reshape(E, f))
+    act = fused_swiglu_grouped(x_g, gq, uq, xq.exp, ge.reshape(E, f), ue.reshape(E, f),
+                               rows=rows)
     aq = quantize_pow2(act, bits=8, axis=None)
-    ye = qmatmul_grouped(aq.q, dq, aq.exp, de.reshape(E, d), "float")
+    ye = qmatmul_grouped(aq.q, dq, aq.exp, de.reshape(E, d), "float", rows=rows)
     return ye.reshape(E, B, C, d).transpose(0, 1)
 
 
@@ -156,7 +163,8 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "pr
     if is_fast_mode(mode) and "w_gate_q" in params:
         if mode == "fast8":
             xe = snap_q8_8(xe)
-        ye = constrain(_fused_expert_mlp(params, xe).to(dt), "moe4d")
+        rows = counts.clamp(max=C).t().to(torch.int32, memory_format=torch.contiguous_format)
+        ye = constrain(_fused_expert_mlp(params, xe, rows).to(dt), "moe4d")
     else:
         gate = torch.einsum("becd,edf->becf", xe.to(dt), params["w_gate"].to(dt))
         up = torch.einsum("becd,edf->becf", xe.to(dt), params["w_up"].to(dt))

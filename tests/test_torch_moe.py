@@ -233,24 +233,34 @@ def test_moe_fused_expert_path(rng):
 @pytest.mark.parametrize("mode,calls", [("fast", 1), ("fast8", 1), ("exact", 0), ("precise", 0)])
 def test_fast_layer_makes_one_call_of_each_grouped_entry(monkeypatch, rng, mode, calls):
     """The FAST expert path is exactly one grouped K2 and one grouped K1
-    call a layer (the card counts them as launches); the float rungs
-    make none."""
+    call a layer (the card counts them as launches), both given the
+    dispatch's live rows (``counts`` clipped at C, as (E, B) int32); the
+    float rungs make none."""
     cfg = smoke("granite_moe_3b_a800m")
     params = attach_quantized_weights(_tiny_params(cfg), QuantizedWeightCache())
     seen = {"k2": 0, "k1": 0}
+    rows = []
 
     def counted(key, fn):
         def wrapper(*args, **kw):
             seen[key] += 1
+            rows.append(kw.get("rows"))
             return fn(*args, **kw)
         return wrapper
 
     monkeypatch.setattr(moe_mod, "fused_swiglu_grouped", counted("k2", fused_swiglu_grouped))
     monkeypatch.setattr(moe_mod, "qmatmul_grouped", counted("k1", qmatmul_grouped))
     x = torch.from_numpy(rng.normal(size=(3, 5, cfg.d_model)).astype(np.float32))
-    moe_mod.moe_forward(params, x.to(torch.float32 if mode == "exact" else torch.bfloat16),
-                        cfg, mode)
+    x = x.to(torch.float32 if mode == "exact" else torch.bfloat16)
+    moe_mod.moe_forward(params, x, cfg, mode)
     assert seen == {"k2": calls, "k1": calls}
+    if calls:
+        h = rms_norm(x, params["norm"], cfg.rms_eps).float()
+        _, idx = moe_mod.top_k_stable(torch.softmax(h @ params["router"].float(), dim=-1),
+                                      cfg.moe.top_k)
+        counts = torch.nn.functional.one_hot(idx.reshape(3, -1), cfg.moe.num_experts).sum(1)
+        want = counts.clamp(max=moe_mod._capacity(5, cfg)).t().to(torch.int32)
+        assert all(torch.equal(r, want) for r in rows)
 
 
 # ---------------------------------------------------------------------------
